@@ -3,18 +3,34 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``gi_raytracer_tpu_torch/csrc`` with
-nvcc (into the git-ignored ``build/``), holds each kernel against its plain
-PyTorch version on the card at the main path's shapes, then drives the main
-path once: the full Cornell box (2,198 triangles), a 750,000-slot photon
-pass, the photon map, and a 512x512 render at a fixed 8 samples per pixel,
-depth 8, kNN k = 32, with the map and without it.  Every phase prints its
-seconds; any failure raises, and the script exits non-zero.  It needs a
-CUDA device and never falls back to the CPU.
+nvcc (one process per source, into the git-ignored ``build/``), holds each
+kernel against its plain PyTorch version on the card at the main paths'
+shapes, then drives three paths, each with the launch counts set to 0 just
+before it and read just after:
+
+* the Cornell main path: the full Cornell box (2,198 triangles), a
+  750,000-slot photon pass, the photon map, and a 512x512 render at a
+  fixed 8 samples per pixel, depth 8, kNN k = 32, with the map and without
+  it (K1 bounce megakernel, K2 dense trace, K3 kNN);
+* phase A, big scene: the terrain of ``scripts/bench_big_scenes.py`` at
+  its three sizes (250,632, 500,000 and 999,698 triangles), each rendered
+  at 256x256, 2 spp, depth 3, no photons (the staged wave on K4, the
+  superchunk trace), with K4 and K2 timed on one wave's primary rays;
+* phase B, high-poly glass: the Cornell box with a 131,072-triangle glass
+  sphere (131,222 triangles), a 250,000-slot photon pass, the map, and a
+  256x256, 4 spp, depth 8 render with it (K4 closest and any hit, K3).
+
+Each render is timed after a warm-up render; one render of the largest
+terrain and one of the glass box are then profiled (device ms per kernel
+and the device's busy share).  Every phase prints its seconds; any failure
+raises, and the script exits non-zero.  It needs a CUDA device and never
+falls back to the CPU.
 
 The last lines of its output are one JSON object with each kernel's launch
-count on the main path, its largest difference from the plain version and
-both times; the card's name and power limit as nvidia-smi prints them; and
-``{"ok": true, "device": {...}}``.
+count on the main paths, its largest difference from the plain version,
+its time, the plain version's, and the bound (the least time the card
+could take for the same work); the card's name and power limit as
+nvidia-smi prints them; and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,16 +52,36 @@ SPP = 8
 DEPTH = 8
 PHOTONS = 750_000
 KNN_K = 32
+# phase A (scripts/bench_big_scenes.py's terrain) and phase B
+BIG_SIZE, BIG_SPP, BIG_DEPTH = 256, 2, 3
+GLASS_SIZE, GLASS_SPP, GLASS_DEPTH = 256, 4, 8
+GLASS_PHOTONS = 250_000
+K4_RAYS = 16_384            # wave-0 primary rays, and as many random rays
+# K3 dense-focus check: core and background photons, queries
+DENSE_CORE, DENSE_BACKGROUND, DENSE_QUERIES = 200_000, 50_000, 16_384
 
 # gates of the kernel-against-plain comparisons (the fractions are of lanes)
 K2_PRIM_EQUAL = 0.999      # prim ids equal (FMA flips borderline accepts)
 K2_T_RTOL = 1e-5
+K4_NEAR_TIE = 2.0 ** -7    # winners this close in t are counted near ties
+K4_TESTS_RTOL = 1e-3       # ray-triangle tests made, against the plain walk
 K1_LANE_TOL = 1e-4         # a lane is off when any channel is off by more
 K1_MAX_OFF = 0.001         # fewer than 0.1% of lanes off
 K1_COUNT_RTOL = 5e-4       # closest / shadow ray counts
 K3_RTOL, K3_ATOL = 2e-4, 1e-6
 K3_CLOSE = 0.999
+K3_DENSE_WINDOW = 512      # dense-focus queries: windows past this many
 MIN_STORED = 0.98          # of the photon slots
+
+# the card's peak rates for the bound (H100 SXM datasheet)
+PEAK_FP32 = 67e12          # FP32 operations per second outside tensor cores
+PEAK_BYTES = 3.35e12       # device memory bytes per second
+# FP32 arithmetic of one ray-triangle test (csrc/common.cuh gi_tri_test:
+# m 5, |det| 1, u 11, v 11, t 6, homogeneous signs 3, u+v 1, max 1,
+# reciprocal 1, product 1) and of one ray-box slab test (stream.cu)
+OPS_PER_TEST = 41
+OPS_PER_SLAB = 27
+OPS_PER_CANDIDATE = 8      # K3: d^2 of one photon (3 sub, 3 mul, 2 add)
 
 
 def log(*args):
@@ -117,6 +153,77 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(ops, nbytes):
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    ``ops`` FP32 operations that move ``nbytes`` bytes."""
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()``, synchronised on both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile(name, fn, top=8):
+    """Device ms per kernel over one call of ``fn`` (torch.profiler) and
+    the share of its wall the device was busy (one stream: the kernels do
+    not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us and "CUDA" in str(getattr(e, "device_type", "")):
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    busy = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    log(f"profile {name}: wall ms {wall:.1f} device busy ms {busy:.1f} "
+        f"({busy / wall:.4f}); kernels ms "
+        + json.dumps({k: round(v, 3) for k, v in ranked}))
+
+
+def hit_gates(name, scene, ro, rd, p_k, p_ref, eps):
+    """Prim ids, hit masks and exact t of kernel winners ``p_k`` against
+    reference winners ``p_ref``.  Lanes whose winners differ in t by more
+    than rtol K2_T_RTOL but within K4_NEAR_TIE are counted as near ties
+    (the approximate ordering t); every other lane must agree.  Returns the
+    largest absolute exact-t difference."""
+    from gi_raytracer_tpu_torch.ops.intersect import exact_hit
+    t_k, _, _, p_k = exact_hit(scene, ro, rd, p_k, eps)
+    t_r, _, _, p_ref = exact_hit(scene, ro, rd, p_ref, eps)
+    both = (p_k >= 0) & (p_ref >= 0)
+    rel = ((t_k - t_r).abs() / t_r.abs())[both]
+    near = ((rel > K2_T_RTOL) & (rel <= K4_NEAR_TIE)).sum().item()
+    far = (rel > K4_NEAR_TIE).sum().item()
+    prim_eq = (p_k == p_ref).float().mean().item()
+    mask_eq = ((p_k >= 0) == (p_ref >= 0)).float().mean().item()
+    log(f"{name}: rays {p_k.shape[0]} hits {both.float().mean().item():.4f} "
+        f"prim equal {prim_eq:.6f} hit mask equal {mask_eq:.6f} exact t "
+        f"max rel err {rel.max().item() if rel.numel() else 0.0:.3e} near "
+        f"ties {near} beyond {far}")
+    require(prim_eq >= K2_PRIM_EQUAL, (name, prim_eq))
+    require(mask_eq >= K2_PRIM_EQUAL, (name, mask_eq))
+    require(far == 0, (name, "exact t off beyond near ties", far))
+    require(near <= (1 - K2_PRIM_EQUAL) * p_k.shape[0], (name, near))
+    return (t_k - t_r).abs()[both].max().item() if both.any() else 0.0
+
+
 def main() -> int:
     import torch
 
@@ -135,26 +242,72 @@ def main() -> int:
     from gi_raytracer_tpu_torch.config import RenderConfig
     from gi_raytracer_tpu_torch.ops import _cuda
     from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
+    from gi_raytracer_tpu_torch.ops import cuda_stream as cs
     from gi_raytracer_tpu_torch.ops.cuda_megakernel import (
         mega_why_not, radiance_wave_mega)
-    from gi_raytracer_tpu_torch.ops.intersect import (trace_closest,
-                                                      trace_tables)
+    from gi_raytracer_tpu_torch.ops.intersect import (
+        stream_boxes, trace_closest, trace_tables, uses_stream)
     from gi_raytracer_tpu_torch.render import Camera, Renderer
     from gi_raytracer_tpu_torch.render.geom import normalize
     from gi_raytracer_tpu_torch.render.integrator import radiance_wave
-    from gi_raytracer_tpu_torch.render.photon import (build_photon_map,
-                                                      sample_photons,
-                                                      trace_photons)
-    from gi_raytracer_tpu_torch.render.photon_knn import sample_photons_tiled
+    from gi_raytracer_tpu_torch.render.photon import (
+        PhotonBatch, build_photon_map, sample_photons, trace_photons)
+    from gi_raytracer_tpu_torch.render.photon_knn import (
+        _cells, _window, sample_photons_tiled)
     from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
+    from gi_raytracer_tpu_torch.scene import terrain
     from gi_raytracer_tpu_torch.scene.cornell import (
-        CAMERA_LOOK_AT, CAMERA_POS, FULL_TRIS, cornell_box)
+        CAMERA_LOOK_AT, CAMERA_POS, FULL_TRIS, GLASS_SUBDIVS, GLASS_TRIS,
+        cornell_box)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
-    rows = {}     # kernel name -> its JSON row
+    rows = {}       # kernel name -> its JSON row
+    launches = {k: 0 for k in _cuda.KERNELS}   # summed over the main paths
+
+    def drive(name, fn, need, absent):
+        """Run one main path with every count set to 0 just before it and
+        read just after: the kernels ``need`` must have launched, those in
+        ``absent`` must not, and no plain version may have run."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: _cuda.launches[k] for k in _cuda.KERNELS}
+        plain = {k: _cuda.plain_calls[k] for k in _cuda.KERNELS}
+        log(f"{name}: kernel launches {got} plain-version calls {plain}")
+        for k in need:
+            require(got[k] > 0, (name, k, got))
+        for k in absent:
+            require(got[k] == 0, (name, k, got))
+        for k in _cuda.KERNELS:
+            require(plain[k] == 0, (name, k, plain))
+            launches[k] += got[k]
+        return out
+
+    def save_png(renderer, img, name):
+        png = os.path.join(OUT_DIR, name)
+        u8 = (renderer.tonemap(img) * 255.0 + 0.5).to(torch.uint8)
+        write_png(png, u8.cpu().numpy())
+        log(f"image mean {img.mean().item():.5f} saved {png}")
+
+    def walls_gate(img, size):
+        """The red wall (world +x) on the image's left, the blue on its
+        right, and the left wall redder than the right."""
+        mid = slice(size * 2 // 5, size * 3 // 5)
+        left = img[mid, size // 5:size * 3 // 10].mean((0, 1))
+        right = img[mid, size * 7 // 10:size * 4 // 5].mean((0, 1))
+        log(f"left wall rgb {left.tolist()} right wall rgb {right.tolist()}")
+        require(left[0] > left[2] and right[2] > right[0], (left, right))
+        require(left[0] / left[2] > right[0] / right[2],
+                "left wall redder than the right wall")
+
+    def rays_for(n_rays):
+        return (torch.full((n_rays,), ci.BIG, device=dev),
+                torch.ones(n_rays, dtype=torch.bool, device=dev),
+                torch.arange(n_rays, device=dev, dtype=torch.int32))
 
     # ---- 1. device ------------------------------------------------------
     with Phase("device"):
@@ -192,10 +345,7 @@ def main() -> int:
         ro = torch.cat([ro_p, ro_r]).contiguous()
         rd = torch.cat([rd_p, rd_r]).contiguous()
         R = ro.shape[0]
-        t_lim = torch.full((R,), ci.BIG, device=dev)
-        act = torch.ones(R, dtype=torch.bool, device=dev)
-        rid = torch.arange(R, device=dev, dtype=torch.int32)
-        args = (feat, accept, ro, rd, t_lim, act, rid, 0, cfg.epsilon)
+        args = (feat, accept, ro, rd, *rays_for(R), 0, cfg.epsilon)
         # the kernel orders hits by an approximate t (a bfloat16-rounded
         # reciprocal); the exact t of the winner is recomputed after it,
         # and that is the t the gate holds to rtol 1e-5
@@ -223,17 +373,22 @@ def main() -> int:
             f"prim equal {frac_same:.6f} hit mask equal {mask_same:.6f} "
             f"exact t max rel err {t_rel:.3e} (approximate t {ta_rel:.3e}) "
             f"any-hit mask equal {any_same:.6f}")
-        log(f"K2 closest-hit ms {ms:.3f} plain ms {plain_ms:.3f}")
         require(frac_same >= K2_PRIM_EQUAL, frac_same)
         require(mask_same >= K2_PRIM_EQUAL, mask_same)
         require(t_rel <= K2_T_RTOL, t_rel)
         require(any_same >= K2_PRIM_EQUAL, any_same)
+        Tp = feat.shape[0]
+        b_ms, b_by = bound(R * Tp * OPS_PER_TEST,
+                           R * (12 + 12 + 4 + 1 + 4 + 8) + Tp * (64 + 4))
+        log(f"K2 closest-hit ms {ms:.3f} plain ms {plain_ms:.3f} bound ms "
+            f"{b_ms:.3f} ({b_by})")
         rows["intersect"] = dict(
             name="intersect", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/intersect.cu",
             replaces="gi_raytracer_tpu/ops/pallas_intersect.py:108",
-            max_abs_err=t_err.max().item(), ms=ms, plain_ms=plain_ms)
-        del ro, rd, ro_r, rd_r, t_lim, act, rid, args, hit_k, hit_p
+            max_abs_err=t_err.max().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del ro, rd, ro_r, rd_r, args, hit_k, hit_p
 
     with Phase("photon map for the comparisons"):
         batch = trace_photons(scene, cfg)
@@ -264,18 +419,37 @@ def main() -> int:
             require(off < K1_MAX_OFF, (name, off))
             require(abs(gc - wc) <= K1_COUNT_RTOL * wc, (gc, wc))
             require(abs(gs - ws) <= K1_COUNT_RTOL * ws, (gs, ws))
-            errs[name] = err.max().item()
+            errs[name] = (err.max().item(), gc)
         ms = cuda_ms(lambda: radiance_wave_mega(scene, cfg, ro, rd, sx, sy,
                                                 lane, 0, None), 5)
         plain_ms = cuda_ms(lambda: radiance_wave(
             scene, cfg, ro, rd, sx, sy, 0, None, lane_ids=lane,
             prim_rows=rows_tab, plain=True), 1)
-        log(f"K1 wave without the map ms {ms:.3f} plain ms {plain_ms:.3f}")
+        # the closest-hit tests alone: every alive lane-bounce walks every
+        # triangle slot (shadow rays, shading and the rest add to it)
+        b_ms, b_by = bound(errs["no map"][1] * Tp * OPS_PER_TEST,
+                           R * (24 + 4 + 32) + DEPTH * R * 8
+                           + Tp * (256 + 64))
+        log(f"K1 wave without the map ms {ms:.3f} plain ms {plain_ms:.3f} "
+            f"bound ms {b_ms:.3f} ({b_by})")
         rows["megakernel"] = dict(
             name="megakernel", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/megakernel.cu",
             replaces="gi_raytracer_tpu/ops/pallas_megakernel.py:344",
-            max_abs_err=errs["map"], ms=ms, plain_ms=plain_ms)
+            max_abs_err=errs["map"][0], ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    def knn_cost(pmap, pts):
+        """(FP32 operations, bytes) of a kNN estimate: d^2 of every window
+        candidate (each cell's first window_cap photons), the photon map
+        and the queries read once, the estimates written once."""
+        cand = torch.zeros(pts.shape[0], dtype=torch.int64, device=dev)
+        for start, end, dup in _window(pmap, _cells(pmap, pts)):
+            cand += torch.where(dup, 0, torch.clamp(end - start,
+                                                    max=pmap.window_cap))
+        nbytes = (pts.shape[0] * (12 + 12 + 12) + pmap.capacity * 37
+                  + pmap.cell_start.numel() * 4)
+        return int(cand.sum()) * OPS_PER_CANDIDATE, nbytes, cand
 
     with Phase("K3 knn vs plain"):
         hit = trace_closest(scene, ro_p, rd_p)
@@ -291,88 +465,298 @@ def main() -> int:
         nonzero = (want.abs().sum(-1) > 0).float().mean().item()
         ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K), 5)
         plain_ms = cuda_ms(lambda: sample_photons(pm, pts, dirs, KNN_K), 1)
+        ops, nbytes, _ = knn_cost(pm, pts)
+        b_ms, b_by = bound(ops, nbytes)
         log(f"K3 queries {pts.shape[0]} nonzero {nonzero:.4f} close "
             f"{frac:.6f} max abs err {err.max().item():.3e}")
-        log(f"K3 ms {ms:.3f} plain ms {plain_ms:.3f}")
+        log(f"K3 ms {ms:.3f} plain ms {plain_ms:.3f} bound ms {b_ms:.4f} "
+            f"({b_by})")
         require(frac >= K3_CLOSE, frac)
         require(nonzero > 0.0, nonzero)
         rows["knn"] = dict(
             name="knn", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/knn.cu",
-            replaces="gi_raytracer_tpu/render/photon_knn.py:652",
-            max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms)
+            replaces="gi_raytracer_tpu/render/photon_knn.py:652,696,71",
+            max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del batch, pm
 
-    # ---- 4. the main path -----------------------------------------------
-    with Phase("main path"):
-        torch.cuda.synchronize()
-        _cuda.reset_launches()
+    with Phase("K3 knn vs plain, dense focus"):
+        # a dense core in a sparse background, on a grid of ~90 photons a
+        # core cell whose window cap (256) never binds: windows from a few
+        # to ~2,400 candidates, every tier of photon_knn.py:71 _knn_kernel
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        pos = torch.cat([
+            (torch.rand((DENSE_CORE, 3), generator=g, device=dev) - 0.5) * 0.5,
+            (torch.rand((DENSE_BACKGROUND, 3), generator=g, device=dev)
+             - 0.5) * 2.0])
+        P = pos.shape[0]
+        dmap = build_photon_map(PhotonBatch(
+            pos, normalize(torch.randn((P, 3), generator=g, device=dev)),
+            torch.rand((P, 3), generator=g, device=dev) * 1e-3,
+            torch.ones(P, dtype=torch.bool, device=dev)),
+            (-1.0,) * 3, (1.0,) * 3, target_per_cell=1.78, window_cap=256)
+        q = (torch.rand((DENSE_QUERIES, 3), generator=g, device=dev)
+             - 0.5) * 0.7
+        qd = normalize(torch.randn((DENSE_QUERIES, 3), generator=g,
+                                   device=dev))
+        got = sample_photons_tiled(dmap, q, qd, KNN_K)
+        want = sample_photons(dmap, q, qd, KNN_K)
+        _, _, cand = knn_cost(dmap, q)
+        occ = int((dmap.cell_start[1:] - dmap.cell_start[:-1]).max())
+        require(occ <= dmap.window_cap, (occ, dmap.window_cap))
+        dense = cand > K3_DENSE_WINDOW
+        close = ((got - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all(-1)
+        tiers = [int(((cand > lo_) & (cand <= hi_)).sum())
+                 for lo_, hi_ in ((-1, 128), (128, 512), (512, 2048),
+                                  (2048, 1 << 30))]
+        log(f"K3 dense focus: map dims {dmap.dims} densest cell {occ} "
+            f"window_cap {dmap.window_cap}; queries {q.shape[0]}, windows "
+            f"<=128 / <=512 / <=2048 / more: {tiers}; close "
+            f"{close.float().mean().item():.6f}, on windows past "
+            f"{K3_DENSE_WINDOW} {close[dense].float().mean().item():.6f} "
+            f"({int(dense.sum())} queries)")
+        require(min(tiers) > 0, tiers)
+        require(close[dense].float().mean().item() >= K3_CLOSE, "dense K3")
+        require(close.float().mean().item() >= K3_CLOSE, "K3 dense focus")
+        del dmap, pos, q, qd, got, want
 
+    # ---- 4. the Cornell main path ----------------------------------------
+    def cornell_path():
         t0 = time.perf_counter()
         batch = trace_photons(scene, cfg)
         torch.cuda.synchronize()
         t_photons = time.perf_counter() - t0
         stored = int(batch.stored.sum())
-        t0 = time.perf_counter()
-        pm = build_photon_map(batch, wmin, wmax)
-        torch.cuda.synchronize()
-        t_map = time.perf_counter() - t0
+        pm, t_map = timed(lambda: build_photon_map(batch, wmin, wmax))
         log(f"photons stored {stored} of {PHOTONS} "
             f"({stored / PHOTONS:.5f}) in {t_photons:.3f} s: "
             f"{PHOTONS / t_photons:.1f} photon slots/s, "
             f"{stored / t_photons:.1f} stored photons/s; map {pm.dims} "
             f"window_cap {pm.window_cap} built in {t_map:.3f} s")
-
+        require(stored >= MIN_STORED * PHOTONS, stored)
         renderer = Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm)
         renderer.render()                                   # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, st = renderer.render(return_state=True)
-        torch.cuda.synchronize()
-        t_render = time.perf_counter() - t0
-        rays = float(st["rays"])
-
+        (img, st), t_render = timed(lambda: renderer.render(
+            return_state=True))
         plain_renderer = Renderer(scene, cam, cfg, WIDTH, HEIGHT)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img0, st0 = plain_renderer.render(return_state=True)
-        torch.cuda.synchronize()
-        t_render0 = time.perf_counter() - t0
-        rays0 = float(st0["rays"])
-
-        launches = {k: _cuda.launches[k] for k in _cuda.KERNELS}
-        plain = {k: _cuda.plain_calls[k] for k in _cuda.KERNELS}
-        log(f"render {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} with map: "
-            f"{rays:.0f} rays in {t_render:.3f} s, {rays / t_render:.1f} "
-            f"rays/s")
-        log(f"render {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} without map: "
-            f"{rays0:.0f} rays in {t_render0:.3f} s, {rays0 / t_render0:.1f} "
-            f"rays/s")
-        log(f"kernel launches {launches} plain-version calls {plain}")
-
-        require(stored >= MIN_STORED * PHOTONS, stored)
-        for im in (img, img0):
+        (img0, st0), t_render0 = timed(lambda: plain_renderer.render(
+            return_state=True))
+        for label, im, s_, t_ in (("with", img, st, t_render),
+                                  ("without", img0, st0, t_render0)):
+            rays = float(s_["rays"])
+            log(f"render {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} {label} "
+                f"map: {rays:.0f} rays in {t_:.3f} s, {rays / t_:.1f} rays/s")
             require(im.shape == (HEIGHT, WIDTH, 3), im.shape)
             require(torch.isfinite(im).all(), "finite image")
-        require(int(st["wave"]) == SPP, st["wave"])
-        # the camera sees +x (red wall) on the image's left
-        mid = slice(HEIGHT * 2 // 5, HEIGHT * 3 // 5)
-        left = img[mid, WIDTH // 5:WIDTH * 3 // 10].mean((0, 1))
-        right = img[mid, WIDTH * 7 // 10:WIDTH * 4 // 5].mean((0, 1))
-        log(f"left wall rgb {left.tolist()} right wall rgb {right.tolist()}")
-        require(left[0] > left[2] and right[2] > right[0], (left, right))
-        require(left[0] / left[2] > right[0] / right[2],
-                "left wall redder than the right wall")
-        for k in _cuda.KERNELS:
-            require(launches[k] > 0, (k, launches))
-            require(plain[k] == 0, (k, plain))
-        png = os.path.join(OUT_DIR, "cornell_512.png")
-        u8 = (renderer.tonemap(img) * 255.0 + 0.5).to(torch.uint8)
-        write_png(png, u8.cpu().numpy())
-        log(f"image mean {img.mean().item():.5f} saved {png}")
+            require(int(s_["wave"]) == SPP, s_["wave"])
+        walls_gate(img, WIDTH)
+        save_png(renderer, img, "cornell_512.png")
+
+    with Phase("main path"):
+        drive("Cornell main path", cornell_path,
+              need=("intersect", "megakernel", "knn"), absent=("stream",))
+
+    # ---- 5. the big-scene path: K4 and phase A ---------------------------
+    big_cfg = RenderConfig(min_samples=BIG_SPP, max_samples=BIG_SPP,
+                           adaptive=False, max_depth=BIG_DEPTH, photons=0,
+                           seed=SEED)
+    big_cam = Camera(pos=terrain.CAMERA_POS, look_at=terrain.CAMERA_LOOK_AT)
+
+    def terrain_build(n):
+        b, t_pop = timed(lambda: terrain.terrain_scene(SceneBuilder, n))
+        big, t_build = timed(lambda: b.build(device=dev))
+        _, t_tab = timed(lambda: (trace_tables(big), stream_boxes(big)))
+        require(big.n_tris == terrain.terrain_tris(n), big.n_tris)
+        require(uses_stream(big), "the terrain goes to K4")
+        log(f"terrain {big.n_tris} triangles: mesh {t_pop:.3f} s, scene "
+            f"build with the SAH BVH {t_build:.3f} s, trace tables and "
+            f"{stream_boxes(big).shape[1]} superchunk boxes {t_tab:.3f} s")
+        return big
+
+    def k4_gates(big, ro, rd, accept, salt, rid, all_opaque, label):
+        """K4 closest and any hit against its plain walk and the brute force
+        (the plain walk's per-tile counts too); returns the largest exact-t
+        difference."""
+        feat_b, scbox = trace_tables(big)[0], stream_boxes(big)
+        R = ro.shape[0]
+        errs = []
+        for any_hit in (False, True):
+            name = f"K4 {label} {'any' if any_hit else 'closest'} hit"
+            base = (ro, rd, torch.full((R,), ci.BIG, device=dev),
+                    torch.ones(R, dtype=torch.bool, device=dev), rid, salt,
+                    big_cfg.epsilon, any_hit, all_opaque)
+            _, p_k, v_k, n_k = cs.prim_query_stream(
+                feat_b, accept, scbox, *base, return_counts=True)
+            _, p_w, v_w, n_w = cs.prim_query_stream_plain(
+                feat_b, accept, scbox, *base, return_counts=True)
+            _, p_b = ci.prim_query_plain(feat_b, accept, *base)
+            tests_k, tests_w = int(n_k.long().sum()), int(n_w.long().sum())
+            log(f"{name}: visits per tile mean "
+                f"{v_k.float().mean().item():.2f} max {v_k.max().item()} of "
+                f"{scbox.shape[1]}; tests {tests_k} (plain walk {tests_w}); "
+                f"tiles with the plain walk's visits "
+                f"{(v_k == v_w).float().mean().item():.4f}, tests "
+                f"{(n_k == n_w).float().mean().item():.4f}")
+            require(abs(tests_k - tests_w) <= K4_TESTS_RTOL * tests_w,
+                    (name, "tests made", tests_k, tests_w))
+            if any_hit:
+                for ref, what in ((p_w, "plain walk"), (p_b, "brute force")):
+                    eq = ((p_k >= 0) == (ref >= 0)).float().mean().item()
+                    log(f"{name} against the {what}: occluded mask equal "
+                        f"{eq:.6f}")
+                    require(eq >= K2_PRIM_EQUAL, (name, what, eq))
+            else:
+                errs.append(hit_gates(f"{name} against the plain walk",
+                                      big, ro, rd, p_k, p_w,
+                                      big_cfg.epsilon))
+                errs.append(hit_gates(f"{name} against the brute force",
+                                      big, ro, rd, p_k, p_b,
+                                      big_cfg.epsilon))
+        return max(errs)
+
+    def k4_primary(big, n):
+        """K4 and K2 over one wave's primary rays; K4's bound from the
+        ray-triangle tests its tiles made.  Returns (ms, plain ms, bound ms,
+        bound by)."""
+        (feat_b, accept_b), scbox = trace_tables(big), stream_boxes(big)
+        ro_w, rd_w, _, _ = Renderer(big, big_cam, big_cfg, BIG_SIZE,
+                                    BIG_SIZE).wave_inputs(0)
+        R = ro_w.shape[0]
+        a = (feat_b, accept_b, scbox, ro_w, rd_w, *rays_for(R), 0,
+             big_cfg.epsilon, False, big.all_opaque)
+        ms = cuda_ms(lambda: cs.prim_query_stream(*a), 5)
+        plain_ms = cuda_ms(lambda: cs.prim_query_stream_plain(*a), 1) \
+            if n == terrain.BIG_N else None
+        k2_ms = cuda_ms(lambda: ci.prim_query(
+            feat_b, accept_b, ro_w, rd_w, *rays_for(R), 0, big_cfg.epsilon,
+            False, big.all_opaque), 1)
+        _, _, v, n_t = cs.prim_query_stream(*a, return_counts=True)
+        n_tile = torch.clamp(R - cs.RAY_TILE * torch.arange(
+            v.numel(), device=dev), max=cs.RAY_TILE)
+        ray_visits = int((v.long() * n_tile).sum())
+        tests = int(n_t.long().sum())
+        Tp, n_sc = feat_b.shape[0], scbox.shape[1]
+        # the cull (every ray into every box), each thread's own entry
+        # into each visited box again, and the tests made
+        b_ms, b_by = bound(
+            tests * OPS_PER_TEST + (R * n_sc + ray_visits) * OPS_PER_SLAB,
+            R * (12 + 12 + 4 + 1 + 4 + 8) + Tp * (64 + 4) + scbox.numel() * 4)
+        log(f"K4 terrain {big.n_tris} primary wave: rays {R} visits per "
+            f"tile mean {v.float().mean().item():.2f} max {v.max().item()} "
+            f"of {n_sc}, {tests} ray-triangle tests made (every ray of a "
+            f"visiting tile in every visited superchunk: "
+            f"{ray_visits * cs.SC_TRIS}); K4 ms {ms:.3f} plain ms "
+            f"{plain_ms if plain_ms is None else round(plain_ms, 3)} bound "
+            f"ms {b_ms:.4f} ({b_by}); K2 on the same rays and scene ms "
+            f"{k2_ms:.3f}")
+        return ms, plain_ms, b_ms, b_by
+
+    def big_path(big):
+        r = Renderer(big, big_cam, big_cfg, BIG_SIZE, BIG_SIZE)
+        r.render()                                          # warm-up
+        (img, st), secs = timed(lambda: r.render(return_state=True))
+        rays = float(st["rays"])
+        log(f"terrain {big.n_tris} render {BIG_SIZE}x{BIG_SIZE} {BIG_SPP} "
+            f"spp depth {BIG_DEPTH}: {rays:.0f} rays in {secs:.3f} s, "
+            f"{rays / secs:.1f} rays/s")
+        require(img.shape == (BIG_SIZE, BIG_SIZE, 3), img.shape)
+        require(torch.isfinite(img).all(), "finite terrain image")
+        require(img.mean().item() > 0.0, "terrain image not black")
+        return r, img
+
+    for n_t in terrain.SIZES:
+        with Phase(f"terrain {n_t} build"):
+            big = terrain_build(n_t)
+        if n_t == terrain.BIG_N:
+            with Phase("K4 stream vs plain"):
+                # 16,384 of wave 0's primary rays and as many random rays
+                # from inside the world box; opaque, then with every other
+                # triangle half transparent (the stochastic-alpha lottery,
+                # keyed on ray ids that are not 0..R-1 and a salt)
+                ro_w, rd_w, _, _ = Renderer(big, big_cam, big_cfg, BIG_SIZE,
+                                            BIG_SIZE).wave_inputs(0)
+                g = torch.Generator(device=dev).manual_seed(SEED + 2)
+                lo_w, hi_w = big.world_min, big.world_max
+                ro = torch.cat([ro_w[:K4_RAYS], lo_w + (hi_w - lo_w)
+                                * torch.rand((K4_RAYS, 3), generator=g,
+                                             device=dev)]).contiguous()
+                rd = torch.cat([rd_w[:K4_RAYS], normalize(torch.randn(
+                    (K4_RAYS, 3), generator=g, device=dev))]).contiguous()
+                R = ro.shape[0]
+                accept_b = trace_tables(big)[1]
+                half = torch.where((torch.arange(accept_b.shape[0],
+                                                 device=dev) % 2 == 1)
+                                   & (accept_b > 0), 0.5, accept_b)
+                rid = (torch.randperm(R, generator=g, device=dev) * 7 + 3) \
+                    .to(torch.int32)
+                k4_err = max(
+                    k4_gates(big, ro, rd, accept_b, 0, rays_for(R)[2],
+                             big.all_opaque, "opaque"),
+                    k4_gates(big, ro, rd, half, 12345, rid, False, "alpha"))
+                del ro, rd, ro_w, rd_w, half, rid
+        with Phase(f"K4 terrain {n_t} primary wave"):
+            k4 = k4_primary(big, n_t)
+        with Phase(f"phase A: terrain {n_t}"):
+            r, img = drive(f"phase A terrain {big.n_tris}",
+                           lambda: big_path(big), need=("stream",),
+                           absent=("intersect", "megakernel"))
+        if n_t == terrain.BIG_N:
+            save_png(r, img, "terrain_256.png")
+            profile(f"terrain {big.n_tris} render", r.render)
+        del big, r, img
+    ms, plain_ms, b_ms, b_by = k4
+    rows["stream"] = dict(
+        name="stream", route="cuda",
+        source="gi_raytracer_tpu_torch/csrc/stream.cu",
+        replaces="gi_raytracer_tpu/ops/pallas_intersect.py:388",
+        max_abs_err=k4_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+
+    # ---- 6. phase B: the high-poly glass box ------------------------------
+    glass_cfg = RenderConfig(min_samples=GLASS_SPP, max_samples=GLASS_SPP,
+                             adaptive=False, max_depth=GLASS_DEPTH,
+                             photons=GLASS_PHOTONS, knn_k=KNN_K, seed=SEED)
+    with Phase("glass build"):
+        glass, t_build = timed(lambda: cornell_box(
+            SceneBuilder, meshgen, True, GLASS_SUBDIVS).build(device=dev))
+        require(glass.n_tris == GLASS_TRIS, glass.n_tris)
+        require(uses_stream(glass) and mega_why_not(glass, glass_cfg),
+                "the glass box takes the staged wave on K4")
+        log(f"glass box {glass.n_tris} triangles built in {t_build:.3f} s")
+
+    def glass_path():
+        gmin = glass.world_min.cpu().numpy()
+        gmax = glass.world_max.cpu().numpy()
+        batch, t_ph = timed(lambda: trace_photons(glass, glass_cfg))
+        stored = int(batch.stored.sum())
+        gpm, t_map = timed(lambda: build_photon_map(batch, gmin, gmax))
+        log(f"phase B photons stored {stored} of {GLASS_PHOTONS} "
+            f"({stored / GLASS_PHOTONS:.5f}) in {t_ph:.3f} s: "
+            f"{GLASS_PHOTONS / t_ph:.1f} photon slots/s; map {gpm.dims} "
+            f"window_cap {gpm.window_cap} built in {t_map:.3f} s")
+        require(stored >= MIN_STORED * GLASS_PHOTONS, stored)
+        r = Renderer(glass, cam, glass_cfg, GLASS_SIZE, GLASS_SIZE,
+                     photon_map=gpm)
+        r.render()                                          # warm-up
+        (img, st), secs = timed(lambda: r.render(return_state=True))
+        rays = float(st["rays"])
+        log(f"phase B render {GLASS_SIZE}x{GLASS_SIZE} {GLASS_SPP} spp "
+            f"depth {GLASS_DEPTH} with the map: {rays:.0f} rays in "
+            f"{secs:.3f} s, {rays / secs:.1f} rays/s")
+        require(img.shape == (GLASS_SIZE, GLASS_SIZE, 3), img.shape)
+        require(torch.isfinite(img).all(), "finite glass image")
+        walls_gate(img, GLASS_SIZE)
+        return r, img
+
+    with Phase("phase B: high-poly glass"):
+        r, img = drive("phase B", glass_path, need=("stream", "knn"),
+                       absent=("intersect", "megakernel"))
+    save_png(r, img, "glass_256.png")
+    profile(f"glass {glass.n_tris} render with the map", r.render)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [{key: dict(rows[k], launches=launches[k])[key] for key in keys}
              for k in _cuda.KERNELS]
     log(json.dumps({"kernels": table}))

@@ -4,6 +4,8 @@ The parity tests turn a JAX ``Scene``/``PhotonBatch``/``PhotonMap`` into
 numpy arrays (plus its static fields) and feed them here, so both packages
 compute on identical triangle order and identical photons.  Array keys are
 the port's field paths: ``"tris.v0"``, ``"lights.pos"``, ``"world_min"``...
+Like every entry point of the port, they put their tensors on the card
+unless the caller passes ``device="cpu"``, and raise when there is none.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import RenderConfig
+from .ops._cuda import resolve_device
 from .render.photon import PhotonBatch, PhotonMap
 from .scene import types as T
 
@@ -30,10 +33,10 @@ def _tensor(x, device, float_dtype=torch.float32):
 
 def scene_from_arrays(arrays: dict, *, all_opaque: bool,
                       has_image_tex: bool = False, leaf_size: int = 4,
-                      device="cpu", dtype=torch.float32) -> T.Scene:
+                      device="cuda", dtype=torch.float32) -> T.Scene:
     """A port ``Scene`` from ``{"tris.v0": ..., ...}`` numpy arrays.
     Spheres must be empty; cones and fog are not carried (``None``)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def group(prefix, cls, **extra):
         kw = {f.name: _tensor(arrays[f"{prefix}.{f.name}"], dev, dtype)
@@ -82,20 +85,20 @@ _FIELDS = {
 }
 
 
-def photon_batch_from_arrays(pos, dir, col, stored, device="cpu",
+def photon_batch_from_arrays(pos, dir, col, stored, device="cuda",
                              dtype=torch.float32) -> PhotonBatch:
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return PhotonBatch(_tensor(pos, dev, dtype), _tensor(dir, dev, dtype),
                        _tensor(col, dev, dtype),
                        torch.from_numpy(np.asarray(stored, bool).copy()).to(dev))
 
 
-def photon_map_from_arrays(arrays: dict, *, dims, window_cap, device="cpu",
+def photon_map_from_arrays(arrays: dict, *, dims, window_cap, device="cuda",
                            dtype=torch.float32) -> PhotonMap:
     """A port ``PhotonMap`` from its fields as numpy arrays (``pos``,
     ``dir``, ``col``, ``valid``, ``cell_start``, ``grid_min``, ``inv_cell``,
     optional ``order``) plus the static ``dims`` and ``window_cap``."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     order = arrays.get("order")
     return PhotonMap(
         pos=_tensor(arrays["pos"], dev, dtype),

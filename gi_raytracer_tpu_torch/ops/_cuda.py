@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels.
 
 All kernels live in ``gi_raytracer_tpu_torch/csrc/*.cu``.  At first use
-they are compiled by ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, under ``build/kernels/`` at the repository root (a
+they are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` process per
+source, all started together, and linked into one shared library with a
+plain C interface, under ``build/kernels/`` at the repository root (a
 git-ignored directory), and loaded with ``ctypes``.  The library is rebuilt
 when any source is newer than it.  Nothing here runs at import time.
 
@@ -24,6 +25,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -33,11 +35,11 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libgi_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
-KERNELS = ("intersect", "megakernel", "knn")
+KERNELS = ("intersect", "megakernel", "knn", "stream")
 
 _lib = None
 _VP, _F, _I, _U = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint
@@ -52,7 +54,21 @@ _SIGNATURES = {
                        _VP, _VP, _VP],
     "gi_knn_launch": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                       _F, _F, _F, _F, _F, _F, _I, _I, _VP, _VP],
+    "gi_stream_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                         _I, _U, _F, _I, _I, _VP, _VP, _VP, _VP, _VP],
 }
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, raising when it names the card and there
+    is none: the port's entry points default to the card and never carry
+    on on the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run its plain versions on the CPU")
+    return dev
 
 
 def reset_launches():
@@ -81,23 +97,39 @@ def needs_build() -> bool:
     return any(os.path.getmtime(s) > built for s in sources())
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; returns their output, or raises naming
+    each that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [" ".join(c) + "\n" + out
+              for c, out, p in zip(cmds, outs, procs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> float:
     """Compile csrc/*.cu into the shared library; returns seconds taken.
-    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
-    kernel) and prints the compiler's output."""
+    Every source compiles in its own ``nvcc`` process, all at once; one
+    more links the objects.  ``verbose`` adds ``-Xptxas -v`` (registers,
+    shared memory, spills per kernel) and prints the compiler's output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = [_nvcc()] + NVCC_FLAGS
     cu = [s for s in sources() if s.endswith(".cu")]
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-I", CSRC, "-o", tmp] + cu
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + res.stdout + res.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cu]
+        out = _run_all([nvcc + (["-Xptxas", "-v"] if verbose else [])
+                        + ["-I", CSRC, "-c", "-o", o, s]
+                        for s, o in zip(cu, objs)])
+        so = os.path.join(tmp, "lib.so")
+        _run_all([nvcc + ["-shared", "-o", so] + objs])
+        os.replace(so, LIB_PATH)
     if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    os.replace(tmp, LIB_PATH)
+        print(out, flush=True)
     return time.time() - t0
 
 

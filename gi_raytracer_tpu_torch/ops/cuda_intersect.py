@@ -69,6 +69,40 @@ def _alpha_uniform(rid, prim, salt):
     return bits_to_u01(h)
 
 
+def ray_terms(o, d):
+    """(ox, oy, oz, dx, dy, dz, cxx, cxy, cxz) of rays o, d (..., 3): the
+    components and ro x rd, each with a trailing axis of 1 for the test's
+    broadcast against a row of triangles."""
+    ox, oy, oz = (o[..., i:i + 1] for i in range(3))
+    dx, dy, dz = (d[..., i:i + 1] for i in range(3))
+    return (ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+            ox * dy - oy * dx)
+
+
+def feature_test(ray, f, eps):
+    """The kernels' separable Moller-Trumbore test of rays (``ray_terms``)
+    against triangles whose 16 feature components are ``f[0..15]``
+    (broadcastable).  Returns (approximate t, geometric accept)."""
+    ox, oy, oz, dx, dy, dz, cxx, cxy, cxz = ray
+    n2x, n2y, n2z, fux, fuy, fuz, fvx, fvy, fvz, d0, \
+        e1x, e1y, e1z, e2x, e2y, e2z = f
+    m = dx * n2x + dy * n2y + dz * n2z
+    sm = torch.where(m >= 0.0, 1.0, -1.0)
+    ds = m * sm
+    ns = -sm
+    u_num = ((cxx * e2x + cxy * e2y + cxz * e2z)
+             + (dx * fux + dy * fuy + dz * fuz))
+    v_sum = ((cxx * e1x + cxy * e1y + cxz * e1z)
+             + (dx * fvx + dy * fvy + dz * fvz))
+    t_num = (ox * n2x + oy * n2y + oz * n2z) - d0
+    us = u_num * ns
+    vs = v_sum * sm
+    ts = t_num * ns
+    ok = ((ds >= eps) & (us >= 0.0) & (vs >= 0.0)
+          & (us + vs <= ds) & (ts > 0.0))
+    return ts * approx_reciprocal(torch.clamp(ds, min=1e-30)), ok
+
+
 def prim_query_plain(feat, accept, ro, rd, t_lim, active, ray_id, salt,
                      eps=1e-5, any_hit=False, all_opaque=False):
     """Brute-force plain version of the trace kernel: every ray against
@@ -88,35 +122,14 @@ def prim_query_plain(feat, accept, ro, rd, t_lim, active, ray_id, salt,
     rb = max(_PLAIN_BLOCK // tb, 1)
     for r0 in range(0, R, rb):
         r1 = min(r0 + rb, R)
-        o = ro[r0:r1].float()
-        d = rd[r0:r1].float()
-        ox, oy, oz = (o[:, i:i + 1] for i in range(3))
-        dx, dy, dz = (d[:, i:i + 1] for i in range(3))
-        cxx = oy * dz - oz * dy
-        cxy = oz * dx - ox * dz
-        cxz = ox * dy - oy * dx
+        ray = ray_terms(ro[r0:r1].float(), rd[r0:r1].float())
         te = t_eff[r0:r1, None]
         rid = rid_all[r0:r1, None]
         for t0 in range(0, Tp, tb):
             t1 = min(t0 + tb, Tp)
             f = feat[t0:t1].T
-            n2x, n2y, n2z, fux, fuy, fuz, fvx, fvy, fvz, d0, \
-                e1x, e1y, e1z, e2x, e2y, e2z = (f[i:i + 1] for i in range(16))
-            m = dx * n2x + dy * n2y + dz * n2z
-            sm = torch.where(m >= 0.0, 1.0, -1.0)
-            ds = m * sm
-            ns = -sm
-            u_num = ((cxx * e2x + cxy * e2y + cxz * e2z)
-                     + (dx * fux + dy * fuy + dz * fuz))
-            v_sum = ((cxx * e1x + cxy * e1y + cxz * e1z)
-                     + (dx * fvx + dy * fvy + dz * fvz))
-            t_num = (ox * n2x + oy * n2y + oz * n2z) - d0
-            us = u_num * ns
-            vs = v_sum * sm
-            ts = t_num * ns
-            ok = ((ds >= eps) & (us >= 0.0) & (vs >= 0.0)
-                  & (us + vs <= ds) & (ts > 0.0))
-            tc = ts * approx_reciprocal(torch.clamp(ds, min=1e-30))
+            tc, ok = feature_test(ray, [f[i:i + 1] for i in range(FEAT_W)],
+                                  eps)
             ok &= tc < te
             if not all_opaque:
                 acc = accept[None, t0:t1]

@@ -1,10 +1,12 @@
 """Ray-scene intersection for triangle scenes.
 
 Counterpart of ``gi_raytracer_tpu.ops.intersect`` on its Pallas route:
-every query goes through the dense trace (``cuda_intersect.prim_query``:
-the CUDA kernel on the card, its plain version on the CPU), then the exact
-Moller-Trumbore (t, u, v) of the winner is recomputed here.  The BVH walk,
-analytic spheres and cones are not ported yet.
+scenes of at most ``VMEM_TRI_CAP`` triangles go through the dense trace
+(``cuda_intersect.prim_query``, K2), bigger ones through the superchunk
+trace (``cuda_stream.prim_query_stream``, K4); each is the CUDA kernel on
+the card and its plain version on the CPU.  The exact Moller-Trumbore
+(t, u, v) of the winner is recomputed here.  The BVH walk, analytic
+spheres and cones are not ported yet.
 
 ``plain=True`` runs the trace's plain version on any device (the card's
 comparison runs use it); nothing on the render path passes it.
@@ -17,6 +19,13 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_intersect as ci
+from . import cuda_stream as cs
+
+# The JAX package's name for the scene size up to which the dense trace
+# runs: there its VMEM-resident table; here the size past which a scene's
+# queries go to the superchunk trace (K4) instead of K2's walk over every
+# triangle.
+VMEM_TRI_CAP = 16_384
 
 
 class Hit(NamedTuple):
@@ -56,6 +65,21 @@ def trace_tables(scene):
     return tab
 
 
+def stream_boxes(scene):
+    """The scene's superchunk boxes (``cuda_stream.build_superchunk_boxes``
+    of its trace table), built once per Scene object and kept on it."""
+    box = scene.__dict__.get("_stream_boxes")
+    if box is None:
+        box = cs.build_superchunk_boxes(scene, trace_tables(scene)[0].shape[0])
+        scene.__dict__["_stream_boxes"] = box
+    return box
+
+
+def uses_stream(scene) -> bool:
+    """Whether the scene's queries go to the superchunk trace (K4)."""
+    return scene.n_tris > VMEM_TRI_CAP
+
+
 def _query(scene, ro, rd, t_max, salt, eps, active, ray_id, any_hit, plain):
     _check_scene(scene)
     R = ro.shape[0]
@@ -69,9 +93,13 @@ def _query(scene, ro, rd, t_max, salt, eps, active, ray_id, any_hit, plain):
            else active)
     rid = (torch.arange(R, dtype=torch.int64, device=dev) if ray_id is None
            else ray_id)
+    args = (ro.detach(), rd.detach(), tl.detach(), act, rid, salt, eps,
+            any_hit, scene.all_opaque)
+    if uses_stream(scene):
+        fn = cs.prim_query_stream_plain if plain else cs.prim_query_stream
+        return fn(feat, accept, stream_boxes(scene), *args)
     fn = ci.prim_query_plain if plain else ci.prim_query
-    return fn(feat, accept, ro.detach(), rd.detach(), tl.detach(), act, rid,
-              salt, eps, any_hit, scene.all_opaque)
+    return fn(feat, accept, *args)
 
 
 def trace_closest_rows(scene, rows, ro, rd, t_max=None, salt=0, eps=1e-5,

@@ -3,9 +3,11 @@
 Counterpart of ``gi_raytracer_tpu.render.integrator``:
 
 * ``radiance_wave`` is the staged wave: the bounce loop as a Python loop of
-  plain torch stages (trace, shade, secondary ray, shadow rays, direct
-  light, caustic estimate, Russian roulette).  It is also the megakernel's
-  plain version.
+  torch stages (trace, shade, secondary ray, shadow rays, direct light,
+  caustic estimate, Russian roulette).  It is the render path of scenes
+  the megakernel does not take (past ``MEGA_TRI_CAP`` triangles: every
+  trace there is K4), and the megakernel's plain version for the scenes it
+  does.
 * ``dispatch_wave`` sends eligible scenes to the megakernel
   (``cuda_megakernel.radiance_wave_mega``) and the rest to the staged wave.
 * ``Renderer.render`` runs one full-frame wave per sample in a Python loop
@@ -89,9 +91,14 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
     Every stochastic stream is keyed on (lane id, purpose, depth); lane ids
     are ``lane_ids`` or ``lane_base + arange(R)``.  ``plain=True`` runs the
     plain trace and kNN versions on any device (comparison runs only)."""
+    from ..ops.cuda_megakernel import mega_eligible
     from .photon import sample_photons_backend
 
-    _cuda.plain_calls["megakernel"] += 1
+    if plain or (cfg.integrator in ("auto", "mega")
+                 and mega_eligible(scene, cfg)):
+        # the staged wave stands in for the megakernel only where the
+        # megakernel would run; past its triangle cap it is the path
+        _cuda.plain_calls["megakernel"] += 1
     R = ro.shape[0]
     dev = ro.device
     dt = ro.dtype

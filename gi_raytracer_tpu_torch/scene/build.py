@@ -5,9 +5,15 @@ Counterpart of ``gi_raytracer_tpu.scene.build.SceneBuilder`` for the
 triangle-only scenes the port renders: constant and checker textures,
 triangles, spherical lights.  The arithmetic is the JAX builder's, in
 float64 numpy, cast once at the end, so both builders emit identical
-arrays for identical calls.  Analytic spheres, cones and fog have no
-builder method yet (``meshgen`` makes sphere and cone meshes), and image
-textures raise ``NotImplementedError``, until the port carries them.
+arrays for identical calls; the BVH (and so the triangle order) is the
+native binned-SAH tree, as in the JAX package.  Triangles are kept in
+blocks, so ``add_triangles`` adds a whole mesh without a Python loop per
+triangle.  Analytic spheres, cones and fog have no builder method yet
+(``meshgen`` makes sphere and cone meshes), and image textures raise
+``NotImplementedError``, until the port carries them.
+
+``build`` puts the scene on the card unless the caller passes
+``device="cpu"``; without a card it raises.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops._cuda import resolve_device
 from . import types as T
 from .bvh import build_bvh
 
@@ -39,6 +46,8 @@ class SceneBuilder:
     """Accumulates scene content, then compiles to a torch ``Scene``."""
 
     def __init__(self):
+        # triangle blocks: (N, 3, 3) vertices and normals, (N, 3, 2) uvs,
+        # (N,) material ids
         self._tri_v, self._tri_n, self._tri_uv, self._tri_mat = [], [], [], []
         self._light_pos, self._light_col, self._light_rad = [], [], []
         self._tex = []         # (kind, color, color2, tiles)
@@ -64,25 +73,29 @@ class SceneBuilder:
         return len(self._mat) - 1
 
     def add_triangle(self, verts, normals=None, uvs=None, mat_id: int = 0):
-        v = np.asarray(verts, np.float64).reshape(3, 3)
-        n = (np.zeros((3, 3)) if normals is None
-             else np.asarray(normals, np.float64).reshape(3, 3))
-        ln = np.linalg.norm(n, axis=1, keepdims=True)
+        self.add_triangles(np.asarray(verts, np.float64).reshape(1, 3, 3),
+                           None if normals is None
+                           else np.asarray(normals).reshape(1, 3, 3),
+                           None if uvs is None
+                           else np.asarray(uvs).reshape(1, 3, 2), mat_id)
+
+    def add_triangles(self, verts, normals=None, uvs=None, mat_id: int = 0):
+        """Bulk add: verts (N,3,3), normals (N,3,3) or None, uvs (N,3,2).
+        Nonzero vertex normals are normalised, as ``add_triangle`` does
+        one triangle at a time in the JAX builder (the same float64 ops,
+        so the same bits)."""
+        v = np.asarray(verts, np.float64).reshape(-1, 3, 3)
+        N = v.shape[0]
+        n = (np.zeros((N, 3, 3)) if normals is None
+             else np.asarray(normals, np.float64).reshape(N, 3, 3))
+        ln = np.linalg.norm(n, axis=2, keepdims=True)
         n = np.where(ln > 0, n / np.maximum(ln, 1e-300), 0.0)
-        uv = (np.zeros((3, 2)) if uvs is None
-              else np.asarray(uvs, np.float64).reshape(3, 2))
+        uv = (np.zeros((N, 3, 2)) if uvs is None
+              else np.asarray(uvs, np.float64).reshape(N, 3, 2))
         self._tri_v.append(v)
         self._tri_n.append(n)
         self._tri_uv.append(uv)
-        self._tri_mat.append(mat_id)
-
-    def add_triangles(self, verts, normals=None, uvs=None, mat_id: int = 0):
-        """Bulk add: verts (N,3,3), normals (N,3,3) or None, uvs (N,3,2)."""
-        verts = np.asarray(verts, np.float64)
-        for i in range(verts.shape[0]):
-            self.add_triangle(verts[i],
-                              None if normals is None else normals[i],
-                              None if uvs is None else uvs[i], mat_id)
+        self._tri_mat.append(np.full(N, int(mat_id), np.int32))
 
     def add_light(self, pos, col, rad: float):
         self._light_pos.append(tuple(pos))
@@ -90,64 +103,81 @@ class SceneBuilder:
         self._light_rad.append(float(rad))
 
     # --- compile ------------------------------------------------------------
-    def _light_cones(self):
+    def _tris(self):
+        """All triangles so far: (T,3,3) vertices, normals, (T,3,2) uvs,
+        (T,) int32 material ids."""
+        if not self._tri_v:
+            return (np.zeros((0, 3, 3)), np.zeros((0, 3, 3)),
+                    np.zeros((0, 3, 2)), np.zeros(0, np.int32))
+        return (np.concatenate(self._tri_v), np.concatenate(self._tri_n),
+                np.concatenate(self._tri_uv), np.concatenate(self._tri_mat))
+
+    def _light_cones(self, v, tri_mat):
         """Per-light photon-emission cone toward the specular geometry:
         dir = mean specular bbox centre minus light; angle = max over
-        specular prims of 1 - acos(dot(dir, light-to-bbox-min))/pi."""
+        specular prims of 1 - acos(dot(dir, light-to-bbox-min))/pi.
+
+        The same values as the JAX builder's loop over every triangle: the
+        specular filter, bounds and centres are exact elementwise ops and
+        the mean reduces the same (N, 3) array; the angle is found with
+        array ops, then recomputed with the JAX builder's scalar ops for
+        the rows within 1e-9 of the maximum, so the maximum is its bits."""
         L = len(self._light_pos)
         dirs = np.zeros((L, 3))
         angles = np.zeros(L)
         mats = np.asarray(self._mat, np.float64) if self._mat else np.zeros((0, 5))
         rough = mats[:, 2] if len(mats) else np.zeros(0)
 
-        spec_centers, spec_mins = [], []
-        for v, m in zip(self._tri_v, self._tri_mat):
-            if rough[m] < 0.1:
-                bmin, bmax = v.min(0), v.max(0) + 1e-5
-                spec_centers.append((bmin + bmax) / 2)
-                spec_mins.append(bmin)
-        if spec_centers:
-            avg = np.mean(spec_centers, 0)
-            for i, lp in enumerate(self._light_pos):
-                lp = np.asarray(lp)
-                d = avg - lp
-                d /= np.linalg.norm(d)
-                dirs[i] = d
-                best = 0.0
-                for bmin in spec_mins:
-                    w = lp - bmin
-                    w = w / np.linalg.norm(w)
-                    a = 1.0 - math.acos(np.clip(np.dot(d, w), -1, 1)) / math.pi
-                    best = max(best, a)
-                angles[i] = best
+        spec = rough[tri_mat] < 0.1
+        if not spec.any():
+            return dirs, angles
+        sv = v[spec]
+        spec_mins = sv.min(1)
+        spec_centers = (spec_mins + (sv.max(1) + 1e-5)) / 2
+        avg = np.mean(spec_centers, 0)
+        for i, lp in enumerate(self._light_pos):
+            lp = np.asarray(lp)
+            d = avg - lp
+            d /= np.linalg.norm(d)
+            dirs[i] = d
+            ws = lp - spec_mins
+            ws = ws / np.linalg.norm(ws, axis=1, keepdims=True)
+            approx = 1.0 - np.arccos(np.clip(ws @ d, -1, 1)) / math.pi
+            best = 0.0
+            for bmin in spec_mins[approx >= approx.max() - 1e-9]:
+                w = lp - bmin
+                w = w / np.linalg.norm(w)
+                a = 1.0 - math.acos(np.clip(np.dot(d, w), -1, 1)) / math.pi
+                best = max(best, a)
+            angles[i] = best
         return dirs, angles
 
-    def build(self, dtype=torch.float32, device="cpu",
-              leaf_size: int = 4) -> T.Scene:
+    def build(self, dtype=torch.float32, device="cuda",
+              leaf_size: int = 4, use_native: bool = True) -> T.Scene:
+        """The torch ``Scene`` on ``device`` (the card by default).
+        ``use_native=False`` orders the triangles by the numpy median-split
+        BVH instead of the native SAH tree."""
         f = _NP_DTYPE[dtype]
-        dev = torch.device(device)
+        dev = resolve_device(device)
 
         def t(x, np_dtype=f):
             return torch.from_numpy(np.ascontiguousarray(
                 np.asarray(x, np_dtype))).to(dev)
 
-        Tn = len(self._tri_v)
-        if Tn:
-            v = np.stack(self._tri_v)
-            n = np.stack(self._tri_n)
-            uv = np.stack(self._tri_uv)
-        else:
-            v = np.zeros((0, 3, 3)); n = np.zeros((0, 3, 3)); uv = np.zeros((0, 3, 2))
+        v, n, uv, tri_mat = self._tris()
+        Tn = v.shape[0]
+        ldir, langle = self._light_cones(v, tri_mat)
         # BVH first, so the triangle arrays can be permuted into leaf order
         # (consecutive triangles spatially coherent)
         tri_min = v.min(1) if Tn else np.zeros((0, 3))
         tri_max = (v.max(1) + 1e-5) if Tn else np.zeros((0, 3))
-        bvh_np = build_bvh(tri_min, tri_max, leaf_size=leaf_size)
+        bvh_np = build_bvh(tri_min, tri_max, leaf_size=leaf_size,
+                           use_native=use_native)
         perm = (np.asarray(bvh_np.prim_idx, np.int64) if Tn
                 else np.zeros(0, np.int64))
         v, n, uv = v[perm], n[perm], uv[perm]
         tri_min, tri_max = tri_min[perm], tri_max[perm]
-        tri_mat = np.asarray(self._tri_mat, np.int32).reshape(Tn)[perm]
+        tri_mat = tri_mat[perm]
 
         e1 = v[:, 1] - v[:, 0]
         e2 = v[:, 2] - v[:, 0]
@@ -163,7 +193,6 @@ class SceneBuilder:
         spheres = T.Spheres(pos=t(np.zeros((0, 3))), rad=t(np.zeros(0)),
                             mat_id=t(np.zeros(0), np.int32))
 
-        ldir, langle = self._light_cones()
         lights = T.Lights(
             pos=t(np.asarray(self._light_pos, np.float64).reshape(-1, 3)),
             col=t(np.asarray(self._light_col, np.float64).reshape(-1, 3)),

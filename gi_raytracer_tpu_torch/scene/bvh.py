@@ -1,10 +1,12 @@
-"""Host-side flat BVH builder with preorder skip links (numpy).
+"""Host-side flat BVH builder with preorder skip links.
 
-Counterpart of ``gi_raytracer_tpu.scene.bvh``'s median-split builder: node
-i descends to i+1 on AABB hit and jumps to skip[i] on miss / after a leaf;
-skip[last] == n_nodes terminates.  The scene builder uses the leaf order
-to permute triangles so that consecutive triangles are spatially coherent.
-The native binned-SAH builder is not ported yet.
+Counterpart of ``gi_raytracer_tpu.scene.bvh``: node i descends to i+1 on
+AABB hit and jumps to skip[i] on miss / after a leaf; skip[last] == n_nodes
+terminates.  The scene builder uses the leaf order to permute triangles so
+that consecutive triangles are spatially coherent.  The default is the
+native binned-SAH builder (``gi_raytracer_tpu_torch.native``), as in the
+JAX package; ``use_native=False`` takes the numpy median split, which
+orders the triangles differently.
 """
 
 from __future__ import annotations
@@ -25,9 +27,27 @@ class BVHArrays:
     prim_idx: np.ndarray   # (P,) int32
 
 
-def build_bvh(pmin: np.ndarray, pmax: np.ndarray,
-              leaf_size: int = 4) -> BVHArrays:
-    """Median-split BVH over per-primitive AABBs (pmin/pmax: (P, 3))."""
+def build_bvh(pmin: np.ndarray, pmax: np.ndarray, leaf_size: int = 4,
+              use_native: bool = True) -> BVHArrays:
+    """BVH over per-primitive AABBs (pmin/pmax: (P, 3)): the native SAH
+    build by default (it raises when the library cannot be built), the
+    numpy median split with ``use_native=False`` or for no primitives."""
+    if use_native and len(pmin) > 0:
+        from ..native import build_bvh_native
+        try:
+            return build_bvh_native(np.asarray(pmin), np.asarray(pmax),
+                                    leaf_size)
+        except (OSError, RuntimeError) as e:
+            raise RuntimeError(
+                f"the native SAH BVH builder is unavailable ({e}); pass "
+                "use_native=False for the numpy median split (another "
+                "triangle order)") from e
+    return _build_bvh_numpy(pmin, pmax, leaf_size)
+
+
+def _build_bvh_numpy(pmin: np.ndarray, pmax: np.ndarray,
+                     leaf_size: int = 4) -> BVHArrays:
+    """Median-split BVH over the longest centroid axis."""
     P = len(pmin)
     if P == 0:
         return BVHArrays(np.zeros((1, 3), np.float64),

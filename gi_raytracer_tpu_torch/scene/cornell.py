@@ -4,7 +4,10 @@ Five +-4 walls, a diffuse box, a glass sphere and a mirror sphere, all as
 triangle meshes, so the scene is megakernel-eligible; one spherical area
 light under the ceiling.  The full box has 10 + 12 + 2,048 + 128 = 2,198
 triangles (18 chunks of 128); ``full=False`` is the test-size variant with
-10 + 12 + 128 + 32 = 182 triangles (2 chunks).
+10 + 12 + 128 + 32 = 182 triangles (2 chunks).  ``glass_subdivs`` sets the
+glass sphere's subdivision level (8 * 4^s triangles): at 7 it has 131,072
+triangles and the box 131,222 (``GLASS_TRIS``), the high-poly glass scene
+that takes the big-scene path (the staged wave on the superchunk trace).
 
 ``cornell_box`` takes the builder class and the mesh module as arguments,
 so the JAX package's ``SceneBuilder``/``meshgen`` can build the identical
@@ -23,9 +26,12 @@ CAMERA_LOOK_AT = (0.0, 0.0, 0.0)
 
 FULL_TRIS = 2198
 SMALL_TRIS = 182
+GLASS_SUBDIVS = 7
+GLASS_TRIS = 131_222
 
 
-def cornell_box(builder, meshgen, full: bool = True):
+def cornell_box(builder, meshgen, full: bool = True,
+                glass_subdivs: int | None = None):
     """Populate a ``builder()`` with the Cornell box; returns the builder."""
     b = builder()
     white = b.add_texture_const((0.9, 0.9, 0.9))
@@ -58,8 +64,10 @@ def cornell_box(builder, meshgen, full: bool = True):
     b.add_triangles(meshgen.box_mesh((1.9, -3.05, 1.6), 1.7, (0.0, 0.4, 0.0)),
                     mat_id=m_white)
     # glass sphere sunk 0.05 into the floor, mirror sphere 0.05 above the box
+    if glass_subdivs is None:
+        glass_subdivs = 4 if full else 2
     gv, gn, guv = meshgen.sphere_mesh((-1.4, -2.85, -0.6), 1.2,
-                                      4 if full else 2)
+                                      glass_subdivs)
     b.add_triangles(gv, gn, guv, mat_id=m_glass)
     mv, mn, muv = meshgen.sphere_mesh((1.9, -1.12, 1.6), 0.9,
                                       2 if full else 1)

@@ -1,9 +1,10 @@
 """Shared helpers of the torch-port parity tests (tests/test_torch_*.py).
 
 Both packages build the same Cornell box (``gi_raytracer_tpu_torch.scene.
-cornell``); the JAX builder is pinned to its numpy median-split BVH, the one
-the port carries, so both sides hold identical triangle order.  The JAX
-scene is then carried into the port through ``convert``.
+cornell``); both take their default native binned-SAH BVH, so both sides
+hold identical triangle order (``use_native=False`` pins the JAX builder to
+its numpy median split, the port's ``build(use_native=False)``).  The JAX
+scene is then carried into the port, on the CPU, through ``convert``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from gi_raytracer_tpu_torch import convert
 from gi_raytracer_tpu_torch.scene.cornell import cornell_box
+from gi_raytracer_tpu_torch.scene.types import Scene as PortScene
 
 # The suite runs in several worker processes at once (pytest-xdist); torch's
 # default of one intra-op thread per core oversubscribes the machine, and
@@ -31,12 +33,14 @@ TEST_CAMERA_POS = (-0.4, 0.3, -3.8)
 TEST_CAMERA_LOOK_AT = (0.0, 0.0, 0.0)
 
 
-def jax_build(populate):
+def jax_build(populate, use_native: bool = True):
     """``populate(SceneBuilder, meshgen)`` built by the JAX package
-    (float32, numpy BVH)."""
+    (float32; its default SAH BVH, or the numpy median split)."""
     import gi_raytracer_tpu.scene.build as jb
     from gi_raytracer_tpu.scene import meshgen as jmeshgen
 
+    if use_native:
+        return populate(jb.SceneBuilder, jmeshgen).build(dtype=np.float32)
     orig = jb.build_bvh
     jb.build_bvh = functools.partial(orig, use_native=False)
     try:
@@ -46,7 +50,7 @@ def jax_build(populate):
 
 
 def jax_cornell(full: bool = False):
-    """The JAX package's Cornell box (float32, numpy BVH)."""
+    """The JAX package's Cornell box (float32, SAH BVH)."""
     return jax_build(lambda builder, mg: cornell_box(builder, mg, full))
 
 
@@ -59,7 +63,7 @@ def port_scene(jax_scene):
     return convert.scene_from_arrays(
         convert.scene_to_arrays(to_numpy(jax_scene)),
         all_opaque=jax_scene.all_opaque,
-        has_image_tex=jax_scene.has_image_tex)
+        has_image_tex=jax_scene.has_image_tex, device="cpu")
 
 
 def port_map(jax_map):
@@ -69,7 +73,26 @@ def port_map(jax_map):
         {k: getattr(m, k) for k in ("pos", "dir", "col", "valid",
                                      "cell_start", "grid_min", "inv_cell",
                                      "order")},
-        dims=jax_map.dims, window_cap=jax_map.window_cap)
+        dims=jax_map.dims, window_cap=jax_map.window_cap, device="cpu")
+
+
+def assert_scene_arrays_equal(got_scene, want_scene, atol=1e-6):
+    """Every array of two scenes (port or JAX, any field objects) equal:
+    floats within ``atol``, integers exactly."""
+    def arrays(scene):
+        if not isinstance(scene, PortScene):
+            scene = to_numpy(scene)
+        return convert.scene_to_arrays(scene)
+
+    want, got = arrays(want_scene), arrays(got_scene)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        assert g.shape == w.shape, k
+        if np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(g, w, rtol=0, atol=atol, err_msg=k)
+        else:
+            assert np.array_equal(g.astype(np.int64), w.astype(np.int64)), k
 
 
 def random_photon_batch(rng, P, lo, hi):

@@ -8,14 +8,17 @@ file imports no JAX, so it also runs on a machine without it:
 (``chip_smoke.py`` makes the same comparisons at the main path's shapes.)
 """
 
+import numpy as np
 import pytest
 import torch
 
 from gi_raytracer_tpu_torch.config import RenderConfig
 from gi_raytracer_tpu_torch.ops import _cuda
 from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
+from gi_raytracer_tpu_torch.ops import cuda_stream as cs
 from gi_raytracer_tpu_torch.ops.cuda_megakernel import radiance_wave_mega
-from gi_raytracer_tpu_torch.ops.intersect import trace_tables
+from gi_raytracer_tpu_torch.ops.intersect import (stream_boxes, trace_closest,
+                                                  trace_tables)
 from gi_raytracer_tpu_torch.render import Camera, Renderer
 from gi_raytracer_tpu_torch.render.geom import normalize
 from gi_raytracer_tpu_torch.render.integrator import radiance_wave
@@ -26,6 +29,7 @@ from gi_raytracer_tpu_torch.render.photon_knn import sample_photons_tiled
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
 from gi_raytracer_tpu_torch.scene.cornell import (cornell_box, CAMERA_POS,
                                                   CAMERA_LOOK_AT)
+from gi_raytracer_tpu_torch.scene.terrain import terrain_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -122,3 +126,98 @@ def test_knn_kernel_matches_plain(dev):
     assert close.float().mean() >= 0.999
     with pytest.raises(NotImplementedError):
         sample_photons_tiled(pm, q.requires_grad_(), qd, 32)
+
+
+def test_default_build_lands_on_the_card(dev):
+    scene = cornell_box(SceneBuilder, meshgen, False).build()
+    assert scene.device.type == "cuda"
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_stream_kernel_matches_plain(dev, any_hit):
+    """K4 against its plain walk and the brute force on a 79,202-triangle
+    terrain: random rays inside the world box, and rays from the camera in
+    tiles that each aim at a small patch of the terrain (narrow frusta, as
+    the renderer's pixel blocks are), which the cull lets skip
+    superchunks."""
+    big = terrain_scene(SceneBuilder, 200).build(device=dev)
+    feat, accept = trace_tables(big)
+    box = stream_boxes(big)
+    R = 8192
+    g = torch.Generator(device=dev).manual_seed(3)
+    lo, hi = big.world_min, big.world_max
+    ro = torch.cat([lo + (hi - lo) * torch.rand((R // 2, 3), generator=g,
+                                                device=dev),
+                    torch.tensor([[0.0, 18.0, -30.0]], device=dev)
+                    .expand(R // 2, 3)]).contiguous()
+    n_tiles = R // 2 // cs.RAY_TILE
+    centre = (torch.rand((n_tiles, 1, 3), generator=g, device=dev) - 0.5) \
+        * 32.0
+    aim = (centre + (torch.rand((n_tiles, cs.RAY_TILE, 3), generator=g,
+                                device=dev) - 0.5) * 2.0).reshape(-1, 3)
+    aim[:, 1] = 0.0
+    rd = torch.cat([normalize(torch.randn((R // 2, 3), generator=g,
+                                          device=dev)),
+                    normalize(aim - ro[R // 2:])]).contiguous()
+    args = (ro, rd, torch.full((R,), ci.BIG, device=dev),
+            torch.ones(R, dtype=torch.bool, device=dev),
+            torch.arange(R, device=dev), 0, 1e-5, any_hit, big.all_opaque)
+    v_k = _stream_matches(feat, accept, box, args, any_hit)
+    assert (v_k < box.shape[1]).any()
+    before = _cuda.launches["stream"]
+    trace_closest(big, ro, rd)
+    assert _cuda.launches["stream"] == before + 1
+
+
+def _stream_matches(feat, accept, box, args, any_hit):
+    """K4 against its plain walk (per-tile visits and tests too) and the
+    brute force; returns K4's visits per tile."""
+    before = _cuda.launches["stream"]
+    _, p_k, v_k, n_k = cs.prim_query_stream(feat, accept, box, *args,
+                                            return_counts=True)
+    assert _cuda.launches["stream"] == before + 1
+    _, p_p, v_p, n_p = cs.prim_query_stream_plain(feat, accept, box, *args,
+                                                  return_counts=True)
+    _, p_b = ci.prim_query_plain(feat, accept, *args)
+    assert (v_k == v_p).float().mean() > 0.99
+    assert abs(int(n_k.sum()) - int(n_p.sum())) <= 1e-3 * int(n_p.sum())
+    for ref in (p_p, p_b):
+        assert ((p_k >= 0) == (ref >= 0)).float().mean() >= 0.999
+        if not any_hit:
+            assert (p_k == ref).float().mean() >= 0.999
+    return v_k
+
+
+def _alpha_soup(dev):
+    """6,000 random triangles in [-5.9, 5.9]^3 (three superchunks), every
+    other one half transparent: K4's stochastic-alpha branch."""
+    rng = np.random.default_rng(11)
+    b = SceneBuilder()
+    t0 = b.add_texture_const((1, 1, 1))
+    m0 = b.add_material(t0, t0, 1.0, 1.0, 1.0)
+    m1 = b.add_material(t0, t0, 1.0, 0.5, 1.0)
+    tris = rng.uniform(-5, 5, (6000, 1, 3)) \
+        + rng.uniform(-0.9, 0.9, (6000, 3, 3))
+    b.add_triangles(tris[0::2], None, None, m0)
+    b.add_triangles(tris[1::2], None, None, m1)
+    return b.build(device=dev)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_stream_kernel_alpha_matches_plain(dev, any_hit):
+    """The alpha lottery keyed on the caller's ray ids (not 0..R-1) and
+    the global prim id, with a salt, a t limit and inactive lanes."""
+    soup = _alpha_soup(dev)
+    assert not soup.all_opaque
+    feat, accept = trace_tables(soup)
+    box = stream_boxes(soup)
+    assert box.shape[1] == 3
+    R = 4096
+    g = torch.Generator(device=dev).manual_seed(5)
+    ro = ((torch.rand((R, 3), generator=g, device=dev) - 0.5) * 10.0)
+    rd = normalize(torch.randn((R, 3), generator=g, device=dev))
+    active = torch.rand(R, generator=g, device=dev) < 0.9
+    rid = torch.randperm(R, generator=g, device=dev) * 7 + 3
+    args = (ro, rd, torch.full((R,), 6.0, device=dev), active, rid, 12345,
+            1e-5, any_hit, soup.all_opaque)
+    _stream_matches(feat, accept, box, args, any_hit)

@@ -78,7 +78,8 @@ def _maps(name):
     P = pos.shape[0]
     jb = jph.PhotonBatch(jnp.asarray(pos), jnp.asarray(d), jnp.asarray(col),
                          jnp.ones(P, bool))
-    tb = convert.photon_batch_from_arrays(pos, d, col, np.ones(P, bool))
+    tb = convert.photon_batch_from_arrays(pos, d, col, np.ones(P, bool),
+                                          device="cpu")
     lo, hi = (-1.5,) * 3, (1.5,) * 3
     return (jph.build_photon_map(jb, lo, hi, **kw),
             tph.build_photon_map(tb, lo, hi, **kw), q, qd)

@@ -69,7 +69,7 @@ def test_render_matches_jax_megakernel_renderer():
 def test_cornell_camera_render_has_wall_colours():
     """The main path's camera (outside the box, at z = -14): the red wall
     is on the image's left, the blue wall on its right."""
-    scene = cornell_box(SceneBuilder, meshgen, False).build()
+    scene = cornell_box(SceneBuilder, meshgen, False).build(device="cpu")
     cfg = convert.config_from_dict(dict(
         dataclasses.asdict(JaxConfig()), min_samples=2, max_samples=2,
         max_depth=3, adaptive=False))

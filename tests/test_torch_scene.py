@@ -1,5 +1,6 @@
 """Port parity: the port's SceneBuilder against the JAX one, array by
-array, on both Cornell sizes (JAX builder pinned to its numpy BVH)."""
+array, on both Cornell sizes (both at their default SAH BVH) and on the
+numpy median split (``use_native=False`` on both sides)."""
 
 import dataclasses
 
@@ -15,14 +16,15 @@ from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
 from gi_raytracer_tpu_torch.scene.cornell import (cornell_box, FULL_TRIS,
                                                   SMALL_TRIS)
 
-from _torch_parity import jax_cornell, port_scene, to_numpy
+from _torch_parity import (assert_scene_arrays_equal, jax_build,
+                           jax_cornell, port_scene, to_numpy)
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["small", "full"])
 def scenes(request):
     full = request.param
     return (full, jax_cornell(full),
-            cornell_box(SceneBuilder, meshgen, full).build())
+            cornell_box(SceneBuilder, meshgen, full).build(device="cpu"))
 
 
 def test_builder_arrays_match(scenes):
@@ -38,6 +40,21 @@ def test_builder_arrays_match(scenes):
             np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=k)
         else:
             assert np.array_equal(g.astype(np.int64), w.astype(np.int64)), k
+
+
+def test_builder_arrays_match_median_split():
+    """``use_native=False`` on both sides: the numpy median split, the
+    same arrays, and another triangle order than the SAH build."""
+    def pop(builder, mg):
+        return cornell_box(builder, mg, True)
+
+    js = jax_build(pop, use_native=False)
+    ts = pop(SceneBuilder, meshgen).build(device="cpu", use_native=False)
+    assert_scene_arrays_equal(ts, js)
+    sah = pop(SceneBuilder, meshgen).build(device="cpu")
+    assert not torch.equal(sah.tris.v0, ts.tris.v0)
+    assert sah.bvh.n_nodes != ts.bvh.n_nodes or not torch.equal(
+        sah.bvh.skip, ts.bvh.skip)
 
 
 def test_builder_flags_and_counts(scenes):
@@ -66,7 +83,7 @@ def test_carried_scene_equals_built_scene(scenes):
 
 
 def test_full_box_is_megakernel_eligible():
-    ts = cornell_box(SceneBuilder, meshgen, True).build()
+    ts = cornell_box(SceneBuilder, meshgen, True).build(device="cpu")
     cfg = JaxConfig(max_depth=8, adaptive=False)
     port_cfg = convert.config_from_dict(dataclasses.asdict(cfg))
     assert mega_why_not(ts, port_cfg) == []
@@ -76,7 +93,7 @@ def test_full_box_is_megakernel_eligible():
 
 
 def test_scene_moves_between_devices():
-    ts = cornell_box(SceneBuilder, meshgen, False).build()
+    ts = cornell_box(SceneBuilder, meshgen, False).build(device="cpu")
     moved = ts.to("cpu")
     assert moved is not ts and moved.all_opaque == ts.all_opaque
     assert torch.equal(moved.tris.v0, ts.tris.v0)

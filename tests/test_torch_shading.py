@@ -120,7 +120,7 @@ def test_checker_texture_matches_jax():
     """A checker-textured sphere mesh: the builders agree array by array,
     and the shade rows give the JAX colours, both checker colours seen."""
     js = jax_build(_checker_ball)
-    ts = _checker_ball(SceneBuilder, meshgen).build()
+    ts = _checker_ball(SceneBuilder, meshgen).build(device="cpu")
     want_arrays = convert.scene_to_arrays(to_numpy(js))
     for k, g in convert.scene_to_arrays(ts).items():
         np.testing.assert_allclose(g, want_arrays[k], rtol=0, atol=1e-6,
