@@ -1,42 +1,56 @@
 """Smoke run of the PyTorch + CUDA port (gi_raytracer_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cornell TREE
 
 Builds the port's CUDA kernels from ``gi_raytracer_tpu_torch/csrc`` with
-nvcc (one process per source, into the git-ignored ``build/``), holds each
-kernel against its plain PyTorch version on the card at the main paths'
-shapes, then drives three paths, each with the launch counts set to 0 just
-before it and read just after:
+nvcc (one process per source, into the git-ignored ``build/``) and drives
+three paths, each with the launch counts set to 0 just before it and read
+just after; each kernel is held against its plain PyTorch version on the
+card at the paths' shapes:
 
-* the Cornell main path: the full Cornell box (2,198 triangles), a
-  750,000-slot photon pass, the photon map, and a 512x512 render at a
-  fixed 8 samples per pixel, depth 8, kNN k = 32, with the map and without
-  it (K1 bounce megakernel, K2 dense trace, K3 kNN);
+* the Cornell main path, first, before any comparison: the full Cornell
+  box (2,198 triangles), a 750,000-slot photon pass, the photon map, and
+  512x512 renders at a fixed 8 samples per pixel, depth 8, kNN k = 32,
+  with the map and without it, CORNELL_RENDERS of each in turns (K1
+  bounce megakernel, K2 dense trace, K3 kNN);
 * phase A, big scene: the terrain of ``scripts/bench_big_scenes.py`` at
   its three sizes (250,632, 500,000 and 999,698 triangles), each rendered
   at 256x256, 2 spp, depth 3, no photons (the staged wave on K4, the
-  superchunk trace), with K4 and K2 timed on one wave's primary rays;
+  superchunk trace), with K4 timed on one wave's primary rays and, at 1M
+  triangles, on the diffuse bounce and shadow rays from their hits;
 * phase B, high-poly glass: the Cornell box with a 131,072-triangle glass
   sphere (131,222 triangles), a 250,000-slot photon pass, the map, and a
   256x256, 4 spp, depth 8 render with it (K4 closest and any hit, K3).
 
+K2 and K4 (the two launches of ``csrc/walk.cuh``) are also timed on the
+traces of one round of their photon passes, and every time of K2 and K4
+comes with the ray-triangle tests the walk made and the bound from them.
 Each render is timed after a warm-up render; one render of the largest
-terrain and one of the glass box are then profiled (device ms per kernel
-and the device's busy share).  Every phase prints its seconds; any failure
-raises, and the script exits non-zero.  It needs a CUDA device and never
-falls back to the CPU.
+terrain and one of the glass box, and the Cornell and glass photon passes,
+are then profiled (device ms per kernel and the device's busy share).
+Every phase prints its seconds; any failure raises, and the script exits
+non-zero.  It needs a CUDA device and never falls back to the CPU.
 
 The last lines of its output are one JSON object with each kernel's launch
 count on the main paths, its largest difference from the plain version,
 its time, the plain version's, and the bound (the least time the card
 could take for the same work); the card's name and power limit as
 nvidia-smi prints them; and ``{"ok": true, "device": {...}}``.
+
+``--cornell TREE`` builds the kernels of the port in the checkout TREE
+(an unpacked ``git archive`` of any commit of the port, this one or an
+older one) and runs only the Cornell path and K1's time on one of its
+512x512 waves, with this script's code, so that two trees are timed by
+the same code in processes that take turns on one card.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import statistics
 import struct
 import subprocess
 import sys
@@ -52,6 +66,7 @@ SPP = 8
 DEPTH = 8
 PHOTONS = 750_000
 KNN_K = 32
+CORNELL_RENDERS = 4        # renders with the map and as many without
 # phase A (scripts/bench_big_scenes.py's terrain) and phase B
 BIG_SIZE, BIG_SPP, BIG_DEPTH = 256, 2, 3
 GLASS_SIZE, GLASS_SPP, GLASS_DEPTH = 256, 4, 8
@@ -171,31 +186,35 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def profile(name, fn, top=8):
+def profile(name, fn, top=8, host=True):
     """Device ms per kernel over one call of ``fn`` (torch.profiler) and
     the share of its wall the device was busy (one stream: the kernels do
-    not overlap)."""
+    not overlap).  ``host=False`` traces the device alone (for long runs
+    of many small operations, such as a photon pass).  The device events
+    are summed from the profiler's raw records, which is fast where
+    ``key_averages`` would take minutes over a photon pass's events."""
     import torch
     from torch.profiler import ProfilerActivity, profile as trace
     torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, ProfilerActivity.CPU)
+    with trace(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us and "CUDA" in str(getattr(e, "device_type", "")):
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            key = e.name().split("(")[0]        # no argument list
+            kernels[key] = kernels.get(key, 0.0) + e.duration_ns() / 1e6
     busy = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     log(f"profile {name}: wall ms {wall:.1f} device busy ms {busy:.1f} "
         f"({busy / wall:.4f}); kernels ms "
         + json.dumps({k: round(v, 3) for k, v in ranked}))
+    return kernels
 
 
 def hit_gates(name, scene, ro, rd, p_k, p_ref, eps):
@@ -224,46 +243,169 @@ def hit_gates(name, scene, ro, rd, p_k, p_ref, eps):
     return (t_k - t_r).abs()[both].max().item() if both.any() else 0.0
 
 
-def main() -> int:
+def save_png(renderer, img, name):
+    import torch
+    png = os.path.join(OUT_DIR, name)
+    u8 = (renderer.tonemap(img) * 255.0 + 0.5).to(torch.uint8)
+    write_png(png, u8.cpu().numpy())
+    log(f"image mean {img.mean().item():.5f} saved {png}")
+
+
+def walls_gate(img, size):
+    """The red wall (world +x) on the image's left, the blue on its right,
+    and the left wall redder than the right."""
+    mid = slice(size * 2 // 5, size * 3 // 5)
+    left = img[mid, size // 5:size * 3 // 10].mean((0, 1))
+    right = img[mid, size * 7 // 10:size * 4 // 5].mean((0, 1))
+    log(f"left wall rgb {left.tolist()} right wall rgb {right.tolist()}")
+    require(left[0] > left[2] and right[2] > right[0], (left, right))
+    require(left[0] / left[2] > right[0] / right[2],
+            "left wall redder than the right wall")
+
+
+def k1_wave(scene, cfg, cam):
+    """K1 at the Cornell path's shape, one 512x512 wave without the map:
+    ((ro, rd, sx, sy, lane) of the wave, its closest-hit rays, mean ms)."""
+    import torch
+    from gi_raytracer_tpu_torch.ops.cuda_megakernel import radiance_wave_mega
+    from gi_raytracer_tpu_torch.render import Renderer
+    ro, rd, sx, sy = Renderer(scene, cam, cfg, WIDTH, HEIGHT).wave_inputs(0)
+    lane = torch.arange(ro.shape[0], device=ro.device)
+    wave = (ro, rd, sx, sy, lane)
+    _, (n_closest, _) = radiance_wave_mega(scene, cfg, *wave[:4], lane, 0,
+                                           None)
+    ms = cuda_ms(lambda: radiance_wave_mega(scene, cfg, *wave[:4], lane, 0,
+                                            None), 5)
+    return wave, int(n_closest), ms
+
+
+def cornell_path(scene, cfg, cam):
+    """The Cornell main path: a photon pass, its map, a warm-up render each
+    way, then CORNELL_RENDERS renders with the map and as many without
+    it, in turns.  Logs each render and the median rays/s of each way,
+    gates the photons stored, the images and the walls, and returns the
+    photon map."""
+    import torch
+    from gi_raytracer_tpu_torch.render import Renderer
+    from gi_raytracer_tpu_torch.render.photon import (build_photon_map,
+                                                      trace_photons)
+    batch, t_photons = timed(lambda: trace_photons(scene, cfg))
+    stored = int(batch.stored.sum())
+    pm, t_map = timed(lambda: build_photon_map(
+        batch, scene.world_min.cpu().numpy(), scene.world_max.cpu().numpy()))
+    log(f"photons stored {stored} of {PHOTONS} ({stored / PHOTONS:.5f}) in "
+        f"{t_photons:.3f} s: {PHOTONS / t_photons:.1f} photon slots/s, "
+        f"{stored / t_photons:.1f} stored photons/s; map {pm.dims} "
+        f"window_cap {pm.window_cap} built in {t_map:.3f} s")
+    require(stored >= MIN_STORED * PHOTONS, stored)
+    ways = {"with": Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm),
+            "without": Renderer(scene, cam, cfg, WIDTH, HEIGHT)}
+    rates = {label: [] for label in ways}
+    imgs = {}
+    for r in ways.values():
+        r.render()                                          # warm-up
+    for _ in range(CORNELL_RENDERS):
+        for label, r in ways.items():
+            (img, st), secs = timed(lambda: r.render(return_state=True))
+            rays = float(st["rays"])
+            log(f"render {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} {label} "
+                f"map: {rays:.0f} rays in {secs:.4f} s, {rays / secs:.1f} "
+                f"rays/s")
+            require(img.shape == (HEIGHT, WIDTH, 3), img.shape)
+            require(torch.isfinite(img).all(), "finite image")
+            require(int(st["wave"]) == SPP, st["wave"])
+            rates[label].append(rays / secs)
+            imgs[label] = img
+    log(f"Cornell render medians of {CORNELL_RENDERS}: with map "
+        f"{statistics.median(rates['with']):.1f} rays/s, without "
+        f"{statistics.median(rates['without']):.1f} rays/s")
+    walls_gate(imgs["with"], WIDTH)
+    save_png(ways["with"], imgs["with"], "cornell_512.png")
+    return pm
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    if argv and (len(argv) != 2 or argv[0] != "--cornell"):
+        print("usage: chip_smoke.py [--cornell TREE]", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(argv[1]) if argv else HERE
+    sys.path.insert(0, tree)
 
     import gi_raytracer_tpu_torch as port
-    pkg_dir = os.path.join(HERE, "gi_raytracer_tpu_torch")
+    pkg_dir = os.path.join(tree, "gi_raytracer_tpu_torch")
     if os.path.dirname(os.path.abspath(port.__file__)) != pkg_dir:
-        print("chip_smoke: run it from a checkout of the repository",
+        print(f"chip_smoke: no checkout of the repository at {tree}",
               file=sys.stderr)
         return 2
 
+    # what the Cornell path needs, which --cornell TREE takes from the tree
     from gi_raytracer_tpu_torch.config import RenderConfig
     from gi_raytracer_tpu_torch.ops import _cuda
-    from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
-    from gi_raytracer_tpu_torch.ops import cuda_stream as cs
     from gi_raytracer_tpu_torch.ops.cuda_megakernel import (
         mega_why_not, radiance_wave_mega)
-    from gi_raytracer_tpu_torch.ops.intersect import (
-        stream_boxes, trace_closest, trace_tables, uses_stream)
     from gi_raytracer_tpu_torch.render import Camera, Renderer
-    from gi_raytracer_tpu_torch.render.geom import normalize
-    from gi_raytracer_tpu_torch.render.integrator import radiance_wave
-    from gi_raytracer_tpu_torch.render.photon import (
-        PhotonBatch, build_photon_map, sample_photons, trace_photons)
-    from gi_raytracer_tpu_torch.render.photon_knn import (
-        _cells, _window, sample_photons_tiled)
     from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
-    from gi_raytracer_tpu_torch.scene import terrain
     from gi_raytracer_tpu_torch.scene.cornell import (
-        CAMERA_LOOK_AT, CAMERA_POS, FULL_TRIS, GLASS_SUBDIVS, GLASS_TRIS,
-        cornell_box)
+        CAMERA_LOOK_AT, CAMERA_POS, FULL_TRIS, cornell_box)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     os.makedirs(OUT_DIR, exist_ok=True)
+
+    # ---- 1. device ------------------------------------------------------
+    with Phase("device"):
+        smi = nvidia_smi_line()
+        log(smi)
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"device {torch.cuda.get_device_name(0)} "
+            f"count {torch.cuda.device_count()} package {port.__file__}")
+
+    # ---- 2. build -------------------------------------------------------
+    with Phase("build"):
+        secs = _cuda.build(verbose=True)
+        log(f"nvcc build seconds {secs:.3f}")
+        _cuda.lib()
+
+    cfg = RenderConfig(min_samples=SPP, max_samples=SPP, adaptive=False,
+                       max_depth=DEPTH, photons=PHOTONS, knn_k=KNN_K,
+                       seed=SEED)
+    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
+    scene = cornell_box(SceneBuilder, meshgen, full=True).build(device=dev)
+    require(scene.n_tris == FULL_TRIS, scene.n_tris)
+    require(mega_why_not(scene, cfg) == [], mega_why_not(scene, cfg))
+
+    if argv:
+        # --cornell TREE: the Cornell path alone, and K1 at its shape
+        with Phase("K1 wave"):
+            _, n_closest, ms = k1_wave(scene, cfg, cam)
+            log(f"K1 wave without the map: {WIDTH}x{HEIGHT} ({n_closest} "
+                f"closest-hit rays) ms {ms:.3f}")
+        with Phase("Cornell path"):
+            cornell_path(scene, cfg, cam)
+        log(nvidia_smi_line())
+        return 0
+
+    from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
+    from gi_raytracer_tpu_torch.ops import cuda_stream as cs
+    from gi_raytracer_tpu_torch.ops.intersect import (
+        chunk_boxes, stream_boxes, trace_closest, trace_tables, uses_stream)
+    from gi_raytracer_tpu_torch.render import photon as photon_mod
+    from gi_raytracer_tpu_torch.render.geom import hemisphere_cos, normalize
+    from gi_raytracer_tpu_torch.render.integrator import radiance_wave
+    from gi_raytracer_tpu_torch.render.photon import (
+        PhotonBatch, build_photon_map, sample_photons, trace_photons)
+    from gi_raytracer_tpu_torch.render.photon_knn import (
+        _cells, _window, sample_photons_tiled)
+    from gi_raytracer_tpu_torch.scene import terrain
+    from gi_raytracer_tpu_torch.scene.cornell import GLASS_SUBDIVS, GLASS_TRIS
+
     rows = {}       # kernel name -> its JSON row
     launches = {k: 0 for k in _cuda.KERNELS}   # summed over the main paths
 
@@ -271,6 +413,10 @@ def main() -> int:
         """Run one main path with every count set to 0 just before it and
         read just after: the kernels ``need`` must have launched, those in
         ``absent`` must not, and no plain version may have run."""
+        # every path starts from a collected heap and an empty allocator
+        # cache, whatever the comparisons before it left behind
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         _cuda.reset_launches()
         out = fn()
@@ -287,55 +433,93 @@ def main() -> int:
             launches[k] += got[k]
         return out
 
-    def save_png(renderer, img, name):
-        png = os.path.join(OUT_DIR, name)
-        u8 = (renderer.tonemap(img) * 255.0 + 0.5).to(torch.uint8)
-        write_png(png, u8.cpu().numpy())
-        log(f"image mean {img.mean().item():.5f} saved {png}")
-
-    def walls_gate(img, size):
-        """The red wall (world +x) on the image's left, the blue on its
-        right, and the left wall redder than the right."""
-        mid = slice(size * 2 // 5, size * 3 // 5)
-        left = img[mid, size // 5:size * 3 // 10].mean((0, 1))
-        right = img[mid, size * 7 // 10:size * 4 // 5].mean((0, 1))
-        log(f"left wall rgb {left.tolist()} right wall rgb {right.tolist()}")
-        require(left[0] > left[2] and right[2] > right[0], (left, right))
-        require(left[0] / left[2] > right[0] / right[2],
-                "left wall redder than the right wall")
-
     def rays_for(n_rays):
         return (torch.full((n_rays,), ci.BIG, device=dev),
                 torch.ones(n_rays, dtype=torch.bool, device=dev),
                 torch.arange(n_rays, device=dev, dtype=torch.int32))
 
-    # ---- 1. device ------------------------------------------------------
-    with Phase("device"):
-        smi = nvidia_smi_line()
-        log(smi)
-        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-            f"device {torch.cuda.get_device_name(0)} "
-            f"count {torch.cuda.device_count()}")
+    def walk_bound(active, visits, tests, n_groups, n_tab, n_boxes):
+        """(ms, by, active ray-visits) of one walk (K2 or K4) from what it
+        needed: the ray-triangle tests it made, the cull (every active ray
+        into every group box) and each active ray's own entry into each
+        group its tile visited; the rays, the ``n_tab``-row table and the
+        ``n_boxes`` boxes read once, the answers written once.  The chunk
+        boxes K4 tests inside a visited superchunk are left out (the
+        kernel does not count them), so the bound is a floor."""
+        R = active.shape[0]
+        n_act = torch.nn.functional.pad(
+            active.int(), (0, visits.numel() * ci.RAY_TILE - R)) \
+            .view(-1, ci.RAY_TILE).sum(1)
+        ray_visits = int((visits.long() * n_act).sum())
+        n_active = int(active.sum())
+        ms, by = bound(int(tests.long().sum()) * OPS_PER_TEST
+                       + (n_active * n_groups + ray_visits) * OPS_PER_SLAB,
+                       R * (12 + 12 + 4 + 1 + 4 + 8) + n_tab * (64 + 4)
+                       + n_boxes * 32)
+        return ms, by, ray_visits
 
-    # ---- 2. build -------------------------------------------------------
-    with Phase("build"):
-        secs = _cuda.build(verbose=True)
-        log(f"nvcc build seconds {secs:.3f}")
-        _cuda.lib()
+    def photon_round(scn, c):
+        """The traces of one round of the photon pass of ``scn``: one
+        chunk of ``c.ray_chunk`` slots, one round (the emission trace and
+        ``c.photon_depth`` continuation traces), as (ro, rd, active, ray
+        id, salt) per trace."""
+        calls = []
+        orig = photon_mod.trace_closest
 
-    cfg = RenderConfig(min_samples=SPP, max_samples=SPP, adaptive=False,
-                       max_depth=DEPTH, photons=PHOTONS, knn_k=KNN_K,
-                       seed=SEED)
-    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
-    scene = cornell_box(SceneBuilder, meshgen, full=True).build(device=dev)
-    require(scene.n_tris == FULL_TRIS, scene.n_tris)
-    require(mega_why_not(scene, cfg) == [], mega_why_not(scene, cfg))
-    wmin = scene.world_min.cpu().numpy()
-    wmax = scene.world_max.cpu().numpy()
+        def record(scene_, ro, rd, t_max=None, salt=0, eps=1e-5,
+                   active=None, ray_id=None, plain=False):
+            calls.append((ro.float().contiguous(), rd.float().contiguous(),
+                          active.clone(), ray_id.clone(), salt))
+            return orig(scene_, ro, rd, t_max, salt, eps, active, ray_id,
+                        plain)
+        photon_mod.trace_closest = record
+        try:
+            trace_photons(scn, c.replace(photons=c.ray_chunk,
+                                         photon_retries=1))
+        finally:
+            photon_mod.trace_closest = orig
+        return calls
 
-    # ---- 3. kernels against their plain versions ------------------------
+    def walk_round(name, query, scn, boxes, calls, eps):
+        """Time the walk ``query`` (K2 or K4) on each trace of a photon
+        round; logs the ms, bound ms and tests summed over the round."""
+        feat_, acc_ = trace_tables(scn)
+        ms = b_ms = 0.0
+        tests_all = 0
+        for ro, rd, act, rid, salt in calls:
+            R = ro.shape[0]
+            a = (feat_, acc_, *boxes, ro, rd, rays_for(R)[0], act, rid, salt,
+                 eps, False, scn.all_opaque)
+            _, _, v, n_t = query(*a, return_counts=True)
+            ms += cuda_ms(lambda: query(*a), 3)
+            b, _, _ = walk_bound(act, v, n_t, boxes[0].shape[1],
+                                 feat_.shape[0], sum(b_.shape[1]
+                                                     for b_ in boxes))
+            b_ms += b
+            tests_all += int(n_t.long().sum())
+        log(f"{name}: {len(calls)} traces of {calls[0][0].shape[0]} slots, "
+            f"active rays {[int(c_[2].sum()) for c_ in calls]}; ms {ms:.3f} "
+            f"tests made {tests_all} bound ms {b_ms:.4f}")
+
+    def walk_resources(kernel, n_groups):
+        info = ci.walk_info(kernel, n_groups)
+        log(f"{kernel} kernel at {n_groups} groups: {json.dumps(info)}")
+        require(info["blocks_per_sm"] >= 1, (kernel, info))
+
+    # ---- 3. the Cornell main path, timed before the comparisons ---------
+    with Phase("main path"):
+        pm = drive("Cornell main path", lambda: cornell_path(scene, cfg, cam),
+                   need=("intersect", "megakernel", "knn"),
+                   absent=("stream",))
+    with Phase("Cornell photon pass profile"):
+        profile("Cornell photon pass", lambda: trace_photons(scene, cfg),
+                host=False)
+
+    # ---- 4. kernels against their plain versions ------------------------
     with Phase("K2 intersect vs plain"):
         feat, accept = trace_tables(scene)
+        cbox = chunk_boxes(scene)
+        walk_resources("intersect", cbox.shape[1])
         ro_p, rd_p, _, _ = Renderer(scene, cam, cfg, WIDTH, HEIGHT) \
             .wave_inputs(0)
         n = ro_p.shape[0]
@@ -345,12 +529,18 @@ def main() -> int:
         ro = torch.cat([ro_p, ro_r]).contiguous()
         rd = torch.cat([rd_p, rd_r]).contiguous()
         R = ro.shape[0]
-        args = (feat, accept, ro, rd, *rays_for(R), 0, cfg.epsilon)
+        args = (ro, rd, *rays_for(R), 0, cfg.epsilon)
         # the kernel orders hits by an approximate t (a bfloat16-rounded
         # reciprocal); the exact t of the winner is recomputed after it,
         # and that is the t the gate holds to rtol 1e-5
-        ta_k, p_k = ci.prim_query(*args, False, scene.all_opaque)
-        ta_p, p_p = ci.prim_query_plain(*args, False, scene.all_opaque)
+        ta_k, p_k, v_k, n_k = ci.prim_query(
+            feat, accept, cbox, *args, False, scene.all_opaque,
+            return_counts=True)
+        ta_p, p_p, v_p, n_p = ci.prim_query_plain(
+            feat, accept, cbox, *args, False, scene.all_opaque,
+            return_counts=True)
+        _, p_b = ci.prim_query_brute(feat, accept, *args, False,
+                                     scene.all_opaque)
         hit_k = trace_closest(scene, ro, rd)
         hit_p = trace_closest(scene, ro, rd, plain=True)
         require(torch.equal(hit_k.prim >= 0, p_k >= 0),
@@ -363,25 +553,50 @@ def main() -> int:
         t_rel = (t_err / hit_p.t[both].abs()).max().item()
         same = (p_k == p_p) & (p_p >= 0)
         ta_rel = ((ta_k - ta_p).abs() / ta_p.abs())[same].max().item()
-        _, a_k = ci.prim_query(*args, True, scene.all_opaque)
-        _, a_p = ci.prim_query_plain(*args, True, scene.all_opaque)
+        tests_k, tests_p = int(n_k.long().sum()), int(n_p.long().sum())
+        _, a_k, _, an_k = ci.prim_query(feat, accept, cbox, *args, True,
+                                        scene.all_opaque, return_counts=True)
+        _, a_p, _, an_p = ci.prim_query_plain(
+            feat, accept, cbox, *args, True, scene.all_opaque,
+            return_counts=True)
+        _, a_b = ci.prim_query_brute(feat, accept, *args, True,
+                                     scene.all_opaque)
         any_same = ((a_k >= 0) == (a_p >= 0)).float().mean().item()
-        ms = cuda_ms(lambda: ci.prim_query(*args, False, scene.all_opaque), 5)
-        plain_ms = cuda_ms(
-            lambda: ci.prim_query_plain(*args, False, scene.all_opaque), 1)
+        any_brute = ((a_k >= 0) == (a_b >= 0)).float().mean().item()
+        ms = cuda_ms(lambda: ci.prim_query(feat, accept, cbox, *args, False,
+                                           scene.all_opaque), 5)
+        plain_ms = cuda_ms(lambda: ci.prim_query_plain(
+            feat, accept, cbox, *args, False, scene.all_opaque), 1)
+        brute_ms = cuda_ms(lambda: ci.prim_query_brute(
+            feat, accept, *args, False, scene.all_opaque), 1)
         log(f"K2 rays {R} hits {both.float().mean().item():.4f} "
             f"prim equal {frac_same:.6f} hit mask equal {mask_same:.6f} "
             f"exact t max rel err {t_rel:.3e} (approximate t {ta_rel:.3e}) "
-            f"any-hit mask equal {any_same:.6f}")
+            f"any-hit mask equal {any_same:.6f} (brute force "
+            f"{any_brute:.6f}); visits per tile mean "
+            f"{v_k.float().mean().item():.2f} max {v_k.max().item()} of "
+            f"{cbox.shape[1]}, tiles with the plain walk's visits "
+            f"{(v_k == v_p).float().mean().item():.4f}, tests "
+            f"{(n_k == n_p).float().mean().item():.4f}; tests made {tests_k} "
+            f"(plain walk {tests_p}; brute force {R * feat.shape[0]}); any "
+            f"hit tests {int(an_k.long().sum())} (plain walk "
+            f"{int(an_p.long().sum())})")
         require(frac_same >= K2_PRIM_EQUAL, frac_same)
         require(mask_same >= K2_PRIM_EQUAL, mask_same)
         require(t_rel <= K2_T_RTOL, t_rel)
         require(any_same >= K2_PRIM_EQUAL, any_same)
+        require(any_brute >= K2_PRIM_EQUAL, any_brute)
+        require(abs(tests_k - tests_p) <= K4_TESTS_RTOL * tests_p,
+                ("K2 tests made", tests_k, tests_p))
+        hit_gates("K2 closest hit against the brute force", scene, ro, rd,
+                  p_k, p_b, cfg.epsilon)
         Tp = feat.shape[0]
-        b_ms, b_by = bound(R * Tp * OPS_PER_TEST,
-                           R * (12 + 12 + 4 + 1 + 4 + 8) + Tp * (64 + 4))
-        log(f"K2 closest-hit ms {ms:.3f} plain ms {plain_ms:.3f} bound ms "
-            f"{b_ms:.3f} ({b_by})")
+        b_ms, b_by, _ = walk_bound(args[3], v_k, n_k, cbox.shape[1], Tp,
+                                   cbox.shape[1])
+        log(f"K2 closest-hit ms {ms:.3f} plain ms {plain_ms:.3f} brute "
+            f"force ms {brute_ms:.3f} bound ms {b_ms:.4f} ({b_by})")
+        walk_round("K2 Cornell photon round", ci.prim_query, scene, (cbox,),
+                   photon_round(scene, cfg), cfg.epsilon)
         rows["intersect"] = dict(
             name="intersect", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/intersect.cu",
@@ -390,12 +605,8 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del ro, rd, ro_r, rd_r, args, hit_k, hit_p
 
-    with Phase("photon map for the comparisons"):
-        batch = trace_photons(scene, cfg)
-        pm = build_photon_map(batch, wmin, wmax)
-        log(f"stored {int(batch.stored.sum())} of {PHOTONS} dims {pm.dims} "
-            f"window_cap {pm.window_cap}")
-
+    # K1 and K3 are held against their plain versions with the main path's
+    # photon map
     with Phase("K1 megakernel vs plain"):
         r128 = Renderer(scene, cam, cfg, 128, 128)
         ro, rd, sx, sy = r128.wave_inputs(0)
@@ -404,34 +615,37 @@ def main() -> int:
         rows_tab = r128.prim_rows()
         errs = {}
         for name, pmap in (("no map", None), ("map", pm)):
-            got, (gc, gs) = radiance_wave_mega(scene, cfg, ro, rd, sx, sy,
+            got, (kc, ks) = radiance_wave_mega(scene, cfg, ro, rd, sx, sy,
                                                lane, 0, pmap)
             want, (wc, ws) = radiance_wave(scene, cfg, ro, rd, sx, sy, 0,
                                            pmap, lane_ids=lane,
                                            prim_rows=rows_tab, plain=True)
             err = (got - want).abs().max(-1).values
             off = (err > K1_LANE_TOL).float().mean().item()
-            gc, gs, wc, ws = int(gc), int(gs), int(wc), int(ws)
+            kc, ks, wc, ws = int(kc), int(ks), int(wc), int(ws)
             log(f"K1 {name}: lanes {R} off>{K1_LANE_TOL} {off:.6f} "
-                f"max abs err {err.max().item():.3e} closest {gc}/{wc} "
-                f"shadow {gs}/{ws} finite {bool(torch.isfinite(got).all())}")
+                f"max abs err {err.max().item():.3e} closest {kc}/{wc} "
+                f"shadow {ks}/{ws} finite {bool(torch.isfinite(got).all())}")
             require(torch.isfinite(got).all(), f"K1 {name}: finite")
             require(off < K1_MAX_OFF, (name, off))
-            require(abs(gc - wc) <= K1_COUNT_RTOL * wc, (gc, wc))
-            require(abs(gs - ws) <= K1_COUNT_RTOL * ws, (gs, ws))
-            errs[name] = (err.max().item(), gc)
-        ms = cuda_ms(lambda: radiance_wave_mega(scene, cfg, ro, rd, sx, sy,
-                                                lane, 0, None), 5)
+            require(abs(kc - wc) <= K1_COUNT_RTOL * wc, (kc, wc))
+            require(abs(ks - ws) <= K1_COUNT_RTOL * ws, (ks, ws))
+            errs[name] = (err.max().item(), kc)
+        ms128 = cuda_ms(lambda: radiance_wave_mega(scene, cfg, ro, rd, sx,
+                                                   sy, lane, 0, None), 5)
+        (ro, rd, sx, sy, lane), gc512, ms = k1_wave(scene, cfg, cam)
+        R = ro.shape[0]
         plain_ms = cuda_ms(lambda: radiance_wave(
             scene, cfg, ro, rd, sx, sy, 0, None, lane_ids=lane,
             prim_rows=rows_tab, plain=True), 1)
         # the closest-hit tests alone: every alive lane-bounce walks every
         # triangle slot (shadow rays, shading and the rest add to it)
-        b_ms, b_by = bound(errs["no map"][1] * Tp * OPS_PER_TEST,
+        b_ms, b_by = bound(gc512 * Tp * OPS_PER_TEST,
                            R * (24 + 4 + 32) + DEPTH * R * 8
                            + Tp * (256 + 64))
-        log(f"K1 wave without the map ms {ms:.3f} plain ms {plain_ms:.3f} "
-            f"bound ms {b_ms:.3f} ({b_by})")
+        log(f"K1 wave without the map: 128x128 ms {ms128:.3f}; 512x512 "
+            f"({R} lanes, {gc512} closest-hit rays) ms {ms:.3f} plain "
+            f"ms {plain_ms:.3f} bound ms {b_ms:.3f} ({b_by})")
         rows["megakernel"] = dict(
             name="megakernel", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/megakernel.cu",
@@ -479,7 +693,7 @@ def main() -> int:
             replaces="gi_raytracer_tpu/render/photon_knn.py:652,696,71",
             max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del batch, pm
+    del pm
 
     with Phase("K3 knn vs plain, dense focus"):
         # a dense core in a sparse background, on a grid of ~90 photons a
@@ -521,42 +735,6 @@ def main() -> int:
         require(close.float().mean().item() >= K3_CLOSE, "K3 dense focus")
         del dmap, pos, q, qd, got, want
 
-    # ---- 4. the Cornell main path ----------------------------------------
-    def cornell_path():
-        t0 = time.perf_counter()
-        batch = trace_photons(scene, cfg)
-        torch.cuda.synchronize()
-        t_photons = time.perf_counter() - t0
-        stored = int(batch.stored.sum())
-        pm, t_map = timed(lambda: build_photon_map(batch, wmin, wmax))
-        log(f"photons stored {stored} of {PHOTONS} "
-            f"({stored / PHOTONS:.5f}) in {t_photons:.3f} s: "
-            f"{PHOTONS / t_photons:.1f} photon slots/s, "
-            f"{stored / t_photons:.1f} stored photons/s; map {pm.dims} "
-            f"window_cap {pm.window_cap} built in {t_map:.3f} s")
-        require(stored >= MIN_STORED * PHOTONS, stored)
-        renderer = Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm)
-        renderer.render()                                   # warm-up
-        (img, st), t_render = timed(lambda: renderer.render(
-            return_state=True))
-        plain_renderer = Renderer(scene, cam, cfg, WIDTH, HEIGHT)
-        (img0, st0), t_render0 = timed(lambda: plain_renderer.render(
-            return_state=True))
-        for label, im, s_, t_ in (("with", img, st, t_render),
-                                  ("without", img0, st0, t_render0)):
-            rays = float(s_["rays"])
-            log(f"render {WIDTH}x{HEIGHT} {SPP} spp depth {DEPTH} {label} "
-                f"map: {rays:.0f} rays in {t_:.3f} s, {rays / t_:.1f} rays/s")
-            require(im.shape == (HEIGHT, WIDTH, 3), im.shape)
-            require(torch.isfinite(im).all(), "finite image")
-            require(int(s_["wave"]) == SPP, s_["wave"])
-        walls_gate(img, WIDTH)
-        save_png(renderer, img, "cornell_512.png")
-
-    with Phase("main path"):
-        drive("Cornell main path", cornell_path,
-              need=("intersect", "megakernel", "knn"), absent=("stream",))
-
     # ---- 5. the big-scene path: K4 and phase A ---------------------------
     big_cfg = RenderConfig(min_samples=BIG_SPP, max_samples=BIG_SPP,
                            adaptive=False, max_depth=BIG_DEPTH, photons=0,
@@ -566,19 +744,22 @@ def main() -> int:
     def terrain_build(n):
         b, t_pop = timed(lambda: terrain.terrain_scene(SceneBuilder, n))
         big, t_build = timed(lambda: b.build(device=dev))
-        _, t_tab = timed(lambda: (trace_tables(big), stream_boxes(big)))
+        _, t_tab = timed(lambda: (trace_tables(big), stream_boxes(big),
+                                  chunk_boxes(big)))
         require(big.n_tris == terrain.terrain_tris(n), big.n_tris)
         require(uses_stream(big), "the terrain goes to K4")
         log(f"terrain {big.n_tris} triangles: mesh {t_pop:.3f} s, scene "
-            f"build with the SAH BVH {t_build:.3f} s, trace tables and "
-            f"{stream_boxes(big).shape[1]} superchunk boxes {t_tab:.3f} s")
+            f"build with the SAH BVH {t_build:.3f} s, trace tables, "
+            f"{stream_boxes(big).shape[1]} superchunk and "
+            f"{chunk_boxes(big).shape[1]} chunk boxes {t_tab:.3f} s")
         return big
 
     def k4_gates(big, ro, rd, accept, salt, rid, all_opaque, label):
         """K4 closest and any hit against its plain walk and the brute force
         (the plain walk's per-tile counts too); returns the largest exact-t
         difference."""
-        feat_b, scbox = trace_tables(big)[0], stream_boxes(big)
+        feat_b, scbox, cbox = (trace_tables(big)[0], stream_boxes(big),
+                               chunk_boxes(big))
         R = ro.shape[0]
         errs = []
         for any_hit in (False, True):
@@ -587,10 +768,10 @@ def main() -> int:
                     torch.ones(R, dtype=torch.bool, device=dev), rid, salt,
                     big_cfg.epsilon, any_hit, all_opaque)
             _, p_k, v_k, n_k = cs.prim_query_stream(
-                feat_b, accept, scbox, *base, return_counts=True)
+                feat_b, accept, scbox, cbox, *base, return_counts=True)
             _, p_w, v_w, n_w = cs.prim_query_stream_plain(
-                feat_b, accept, scbox, *base, return_counts=True)
-            _, p_b = ci.prim_query_plain(feat_b, accept, *base)
+                feat_b, accept, scbox, cbox, *base, return_counts=True)
+            _, p_b = ci.prim_query_brute(feat_b, accept, *base)
             tests_k, tests_w = int(n_k.long().sum()), int(n_w.long().sum())
             log(f"{name}: visits per tile mean "
                 f"{v_k.float().mean().item():.2f} max {v_k.max().item()} of "
@@ -615,42 +796,76 @@ def main() -> int:
                                       big_cfg.epsilon))
         return max(errs)
 
-    def k4_primary(big, n):
-        """K4 and K2 over one wave's primary rays; K4's bound from the
-        ray-triangle tests its tiles made.  Returns (ms, plain ms, bound ms,
-        bound by)."""
-        (feat_b, accept_b), scbox = trace_tables(big), stream_boxes(big)
+    def k4_wave(big, label, ro, rd, t_lim, active, any_hit, plain):
+        """K4 on one set of rays (ray ids 0..R-1, salt 0), its time and the
+        bound from the tests it made; with ``plain`` the plain walk's time
+        too.  Logs and returns (ms, plain ms or None, bound ms, bound by)."""
+        (feat_b, accept_b) = trace_tables(big)
+        scbox, cbox = stream_boxes(big), chunk_boxes(big)
+        R = ro.shape[0]
+        a = (feat_b, accept_b, scbox, cbox, ro, rd, t_lim, active,
+             torch.arange(R, device=dev, dtype=torch.int32), 0,
+             big_cfg.epsilon, any_hit, big.all_opaque)
+        ms = cuda_ms(lambda: cs.prim_query_stream(*a), 5)
+        plain_ms = cuda_ms(lambda: cs.prim_query_stream_plain(*a), 1) \
+            if plain else None
+        # the set-up alone (primary rays, whose origin lies outside every
+        # box): with a t limit of 1e-9 no superchunk is entered, so the
+        # launch is the cull over every box and nothing after it
+        a0 = a[:6] + (torch.full_like(t_lim, 1e-9),) + a[7:]
+        setup_ms = cuda_ms(lambda: cs.prim_query_stream(*a0), 5) \
+            if plain else float("nan")
+        _, p, v, n_t = cs.prim_query_stream(*a, return_counts=True)
+        tests = int(n_t.long().sum())
+        b_ms, b_by, ray_visits = walk_bound(active, v, n_t, scbox.shape[1],
+                                            feat_b.shape[0],
+                                            scbox.shape[1] + cbox.shape[1])
+        n_act = int(active.sum())
+        log(f"K4 terrain {big.n_tris} {label}: rays {R} active {n_act} hit "
+            f"{(p >= 0).float().mean().item():.4f}; visits per tile mean "
+            f"{v.float().mean().item():.2f} max {v.max().item()} of "
+            f"{scbox.shape[1]}, {tests} ray-triangle tests made "
+            f"({tests / max(n_act, 1):.1f} per active ray; every active ray "
+            f"of a visiting tile in every visited superchunk: "
+            f"{ray_visits * cs.SC_TRIS}); K4 ms {ms:.3f} (set-up alone "
+            f"{setup_ms:.3f}) plain ms "
+            f"{plain_ms if plain_ms is None else round(plain_ms, 3)} bound "
+            f"ms {b_ms:.4f} ({b_by})")
+        return ms, plain_ms, b_ms, b_by
+
+    def k4_rays(big, n):
+        """K4 over one wave's primary rays; on the largest terrain also over
+        the diffuse bounce rays from their hits (cosine-weighted about the
+        normal, from a seeded generator) and the shadow rays from the hits
+        to the light (any hit).  Returns the primary rays' (ms, plain ms,
+        bound ms, bound by)."""
         ro_w, rd_w, _, _ = Renderer(big, big_cam, big_cfg, BIG_SIZE,
                                     BIG_SIZE).wave_inputs(0)
         R = ro_w.shape[0]
-        a = (feat_b, accept_b, scbox, ro_w, rd_w, *rays_for(R), 0,
-             big_cfg.epsilon, False, big.all_opaque)
-        ms = cuda_ms(lambda: cs.prim_query_stream(*a), 5)
-        plain_ms = cuda_ms(lambda: cs.prim_query_stream_plain(*a), 1) \
-            if n == terrain.BIG_N else None
-        k2_ms = cuda_ms(lambda: ci.prim_query(
-            feat_b, accept_b, ro_w, rd_w, *rays_for(R), 0, big_cfg.epsilon,
-            False, big.all_opaque), 1)
-        _, _, v, n_t = cs.prim_query_stream(*a, return_counts=True)
-        n_tile = torch.clamp(R - cs.RAY_TILE * torch.arange(
-            v.numel(), device=dev), max=cs.RAY_TILE)
-        ray_visits = int((v.long() * n_tile).sum())
-        tests = int(n_t.long().sum())
-        Tp, n_sc = feat_b.shape[0], scbox.shape[1]
-        # the cull (every ray into every box), each thread's own entry
-        # into each visited box again, and the tests made
-        b_ms, b_by = bound(
-            tests * OPS_PER_TEST + (R * n_sc + ray_visits) * OPS_PER_SLAB,
-            R * (12 + 12 + 4 + 1 + 4 + 8) + Tp * (64 + 4) + scbox.numel() * 4)
-        log(f"K4 terrain {big.n_tris} primary wave: rays {R} visits per "
-            f"tile mean {v.float().mean().item():.2f} max {v.max().item()} "
-            f"of {n_sc}, {tests} ray-triangle tests made (every ray of a "
-            f"visiting tile in every visited superchunk: "
-            f"{ray_visits * cs.SC_TRIS}); K4 ms {ms:.3f} plain ms "
-            f"{plain_ms if plain_ms is None else round(plain_ms, 3)} bound "
-            f"ms {b_ms:.4f} ({b_by}); K2 on the same rays and scene ms "
-            f"{k2_ms:.3f}")
-        return ms, plain_ms, b_ms, b_by
+        t_big, all_on, _ = rays_for(R)
+        prim_row = k4_wave(big, "primary wave", ro_w, rd_w, t_big, all_on,
+                           False, n == terrain.BIG_N)
+        if n != terrain.BIG_N:
+            return prim_row
+        hit = trace_closest(big, ro_w, rd_w)
+        ok = hit.prim >= 0
+        tr = big.tris
+        pidx = torch.clamp(hit.prim, min=0).long()
+        nrm = normalize(torch.linalg.cross(tr.e1[pidx], tr.e2[pidx]))
+        nrm = torch.where(((nrm * rd_w).sum(-1, keepdim=True) > 0), -nrm, nrm)
+        pts = ro_w + torch.where(ok, hit.t, 0.0)[:, None] * rd_w \
+            + big_cfg.shadow_bias * nrm
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        u = torch.rand((2, R), generator=g, device=dev)
+        bounce = hemisphere_cos(nrm, u[0], u[1], 2.0).contiguous()
+        k4_wave(big, "diffuse bounce rays", pts.contiguous(), bounce, t_big,
+                ok, False, False)
+        to_l = big.lights.pos[0][None, :].float() - pts
+        dist = to_l.norm(dim=-1)
+        k4_wave(big, "shadow rays", pts.contiguous(),
+                (to_l / dist[:, None]).contiguous(),
+                (dist - big_cfg.shadow_bias).contiguous(), ok, True, False)
+        return prim_row
 
     def big_path(big):
         r = Renderer(big, big_cam, big_cfg, BIG_SIZE, BIG_SIZE)
@@ -695,8 +910,10 @@ def main() -> int:
                              big.all_opaque, "opaque"),
                     k4_gates(big, ro, rd, half, 12345, rid, False, "alpha"))
                 del ro, rd, ro_w, rd_w, half, rid
-        with Phase(f"K4 terrain {n_t} primary wave"):
-            k4 = k4_primary(big, n_t)
+        if n_t == terrain.BIG_N:
+            walk_resources("stream", stream_boxes(big).shape[1])
+        with Phase(f"K4 terrain {n_t} rays"):
+            k4 = k4_rays(big, n_t)
         with Phase(f"phase A: terrain {n_t}"):
             r, img = drive(f"phase A terrain {big.n_tris}",
                            lambda: big_path(big), need=("stream",),
@@ -724,6 +941,10 @@ def main() -> int:
         require(uses_stream(glass) and mega_why_not(glass, glass_cfg),
                 "the glass box takes the staged wave on K4")
         log(f"glass box {glass.n_tris} triangles built in {t_build:.3f} s")
+    with Phase("K4 glass photon round"):
+        walk_round("K4 glass photon round", cs.prim_query_stream, glass,
+                   (stream_boxes(glass), chunk_boxes(glass)),
+                   photon_round(glass, glass_cfg), glass_cfg.epsilon)
 
     def glass_path():
         gmin = glass.world_min.cpu().numpy()
@@ -754,6 +975,9 @@ def main() -> int:
                        absent=("intersect", "megakernel"))
     save_png(r, img, "glass_256.png")
     profile(f"glass {glass.n_tris} render with the map", r.render)
+    with Phase("glass photon pass profile"):
+        profile(f"glass {glass.n_tris} photon pass",
+                lambda: trace_photons(glass, glass_cfg), host=False)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -768,4 +992,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

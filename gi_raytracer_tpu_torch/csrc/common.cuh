@@ -69,15 +69,12 @@ __device__ __forceinline__ GiRay gi_make_ray(float ox, float oy, float oz,
 // Separable homogeneous Moller-Trumbore accept test on one feature row
 // f[16] = [n2 xyz, fu xyz, fv xyz, d0, e1 xyz, e2 xyz] (the TPU kernels'
 // form, pallas_megakernel.py:213-228, approximate reciprocal included).
-// Returns the approximate t, or a negative value when the triangle is not
-// hit.
-__device__ __forceinline__ float gi_tri_test(const GiRay& r,
-                                             const float4* __restrict__ f4,
-                                             float eps) {
-  const float4 a = __ldg(f4 + 0);  // n2x n2y n2z fux
-  const float4 b = __ldg(f4 + 1);  // fuy fuz fvx fvy
-  const float4 c = __ldg(f4 + 2);  // fvz d0 e1x e1y
-  const float4 d = __ldg(f4 + 3);  // e1z e2x e2y e2z
+// The row comes as its four float4 quads a = (n2x n2y n2z fux), b = (fuy
+// fuz fvx fvy), c = (fvz d0 e1x e1y), d = (e1z e2x e2y e2z).  Returns the
+// approximate t, or a negative value when the triangle is not hit.
+__device__ __forceinline__ float gi_tri_test4(const GiRay& r, const float4 a,
+                                              const float4 b, const float4 c,
+                                              const float4 d, float eps) {
   const float m = r.dx * a.x + r.dy * a.y + r.dz * a.z;
   const float sm = m >= 0.0f ? 1.0f : -1.0f;
   const float ds = m * sm;
@@ -94,4 +91,12 @@ __device__ __forceinline__ float gi_tri_test(const GiRay& r,
                   (us + vs <= ds) & (ts > 0.0f);
   if (!ok) return -1.0f;
   return ts * gi_approx_rcp(fmaxf(ds, 1e-30f));
+}
+
+// gi_tri_test4 on the feature row at f4 (four float4 quads in device memory)
+__device__ __forceinline__ float gi_tri_test(const GiRay& r,
+                                             const float4* __restrict__ f4,
+                                             float eps) {
+  return gi_tri_test4(r, __ldg(f4 + 0), __ldg(f4 + 1), __ldg(f4 + 2),
+                      __ldg(f4 + 3), eps);
 }

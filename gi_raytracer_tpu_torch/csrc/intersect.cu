@@ -1,78 +1,50 @@
-// K2: dense closest-hit / any-hit triangle trace.
+// K2: dense closest-hit / any-hit triangle trace, for scenes of at most
+// 16,384 triangles (128 chunks of 128 rows; the kernel orders up to 2,048).
 //
 // Replaces gi_raytracer_tpu/ops/pallas_intersect.py::_kernel (launched by
 // _dense_trace).  The TPU kernel tests 256-ray tiles against 128-triangle
-// chunks in entry order with a collective t-cap early exit; here one thread
-// owns one ray and walks every triangle's feature row in index order.
+// chunks in entry order behind a collective t cap.  Here the same query is
+// the walk of walk.cuh with one 128-row chunk per group: a block of 256
+// threads owns a tile of 256 rays, reduces every ray's slab entry into
+// every chunk box to the tile's least entry per chunk, sorts the entered
+// chunks, and walks them in that order behind the tile's cap.  In a visited
+// chunk only the rays that need it (entry at or before their best t; any
+// hit: no hit yet) enter a compacted list; every warp takes rays from the
+// list and tests the chunk's 128 rows, one per lane, from shared memory.
+// The next chunk's rows are copied in (cp.async) while this one is tested.
 //
-// What bounds it on the card: arithmetic (~40 FP32 ops per ray-triangle
-// test) and the issue rate of the feature loads.  All threads of a warp
-// read the same 64-byte feature row at the same time, so a load is one
-// broadcast from L1; the table (<= 16,384 x 64 B = 1 MB) stays in L1/L2.
-// The ordered walk and the culls that prune chunks are later work.
+// What bounds it on the card: FP32 arithmetic, ~41 operations per
+// ray-triangle test, in the chunks each ray needs (the per-tile test
+// counter reports them); the bytes are small (a table of <= 16,384 rows is
+// 1 MB and stays in L2).  Past the tests, each visit costs three block
+// barriers and the per-ray compaction, which dominate where a tile's rays
+// need few rows of a chunk.
 //
-// Semantics match the plain version (cuda_intersect.prim_query_plain):
-// the smallest approximate t below t_lim wins, ties to the smallest prim
-// id (strict < in index order); any_hit stops at the first accepted
-// triangle.  Inactive lanes return (BIG, -1).
+// Semantics match the plain version (cuda_intersect.prim_query_plain): the
+// same cull, order, caps, per-ray skip, accept test and tie rule (smaller
+// t, then smaller prim id); any hit returns the first accepted row of the
+// first chunk in walk order that holds one.  Inactive lanes return
+// (BIG, -1).  The brute force (cuda_intersect.prim_query_brute) keeps the
+// same winner but for near ties of the approximate t across chunks.
 
-#include "common.cuh"
-
-__global__ void gi_trace_kernel(const float* __restrict__ ro,
-                                const float* __restrict__ rd,
-                                const float* __restrict__ tlim,
-                                const uint8_t* __restrict__ active,
-                                const int32_t* __restrict__ rid,
-                                const float* __restrict__ feat,
-                                const float* __restrict__ accept,
-                                int n_rays, int t_pad, uint32_t salt,
-                                float eps, int any_hit, int all_opaque,
-                                float* __restrict__ out_t,
-                                int32_t* __restrict__ out_prim) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  float best_t = GI_BIG;
-  int best_p = -1;
-  if (active[i]) {
-    const GiRay r = gi_make_ray(ro[3 * i], ro[3 * i + 1], ro[3 * i + 2],
-                                rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]);
-    const float t_eff = tlim[i];
-    const uint32_t ray = (uint32_t)rid[i];
-    const float4* f4 = reinterpret_cast<const float4*>(feat);
-    for (int p = 0; p < t_pad; ++p) {
-      const float tc = gi_tri_test(r, f4 + 4 * p, eps);
-      if (!(tc >= 0.0f) || !(tc < t_eff)) continue;
-      if (!all_opaque) {
-        const float acc = __ldg(accept + p);
-        if (!(acc >= 1.0f) && !(gi_alpha_u01(ray, (uint32_t)p, salt) < acc))
-          continue;
-      }
-      if (any_hit) {
-        best_t = tc;
-        best_p = p;
-        break;
-      }
-      if (tc < best_t) {
-        best_t = tc;
-        best_p = p;
-      }
-    }
-  }
-  out_t[i] = best_t;
-  out_prim[i] = best_p;
-}
+#include "walk.cuh"
 
 extern "C" int gi_trace_launch(const float* ro, const float* rd,
                                const float* tlim, const uint8_t* active,
                                const int32_t* rid, const float* feat,
-                               const float* accept, int n_rays, int t_pad,
-                               uint32_t salt, float eps, int any_hit,
-                               int all_opaque, float* out_t,
-                               int32_t* out_prim, cudaStream_t stream) {
-  const int block = 128;
-  const int grid = (n_rays + block - 1) / block;
-  gi_trace_kernel<<<grid, block, 0, stream>>>(
-      ro, rd, tlim, active, rid, feat, accept, n_rays, t_pad, salt, eps,
-      any_hit, all_opaque, out_t, out_prim);
-  return (int)cudaGetLastError();
+                               const float* accept, const float* cbox,
+                               int n_rays, int t_pad, uint32_t salt,
+                               float eps, int any_hit, int all_opaque,
+                               float* out_t, int32_t* out_prim,
+                               int32_t* visits, int32_t* tests,
+                               cudaStream_t stream) {
+  const int n_chunks = t_pad / GI_CHUNK;
+  return gi_walk_launch<1>(ro, rd, tlim, active, rid, feat, accept, cbox,
+                           cbox, n_rays, n_chunks, n_chunks, salt, eps,
+                           any_hit, all_opaque, out_t, out_prim, visits,
+                           tests, stream);
+}
+
+extern "C" int gi_trace_info(int n_chunks, int* out) {
+  return gi_walk_info<1>(n_chunks, out);
 }

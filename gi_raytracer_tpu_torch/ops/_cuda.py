@@ -1,11 +1,12 @@
 """Builds and loads the port's CUDA kernels.
 
-All kernels live in ``gi_raytracer_tpu_torch/csrc/*.cu``.  At first use
+All kernels live in ``gi_raytracer_tpu_torch/csrc/*.cu`` (with the
+device headers ``*.cuh`` they include).  At first use
 they are compiled by ``nvcc`` for ``sm_90a``, one ``nvcc`` process per
 source, all started together, and linked into one shared library with a
 plain C interface, under ``build/kernels/`` at the repository root (a
 git-ignored directory), and loaded with ``ctypes``.  The library is rebuilt
-when any source is newer than it.  Nothing here runs at import time.
+when any source or header is newer than it.  Nothing here runs at import time.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, launches on that stream, and returns ``cudaGetLastError()``;
@@ -47,15 +48,16 @@ _VP, _F, _I, _U = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint
 # argtypes of every C entry point (csrc/*.cu); pointers and the stream are
 # c_void_p so ctypes never cuts them to 32 bits
 _SIGNATURES = {
-    "gi_trace_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _U, _F,
-                        _I, _I, _VP, _VP, _VP],
+    "gi_trace_launch": [_VP] * 8 + [_I, _I, _U, _F, _I, _I] + [_VP] * 5,
+    "gi_trace_info": [_I, _VP],
     "gi_mega_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                        _I, _U, _F, _F, _I, _F, _F, _F, _I, _I, _I,
                        _VP, _VP, _VP],
     "gi_knn_launch": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                       _F, _F, _F, _F, _F, _F, _I, _I, _VP, _VP],
-    "gi_stream_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                         _I, _U, _F, _I, _I, _VP, _VP, _VP, _VP, _VP],
+    "gi_stream_launch": [_VP] * 9 + [_I, _I, _I, _U, _F, _I, _I]
+    + [_VP] * 5,
+    "gi_stream_info": [_I, _VP],
 }
 
 

@@ -23,8 +23,8 @@ from . import cuda_stream as cs
 
 # The JAX package's name for the scene size up to which the dense trace
 # runs: there its VMEM-resident table; here the size past which a scene's
-# queries go to the superchunk trace (K4) instead of K2's walk over every
-# triangle.
+# queries go to the superchunk trace (K4) instead of K2's walk over single
+# 128-triangle chunks.
 VMEM_TRI_CAP = 16_384
 
 
@@ -65,6 +65,18 @@ def trace_tables(scene):
     return tab
 
 
+def chunk_boxes(scene):
+    """The scene's 128-row chunk boxes (``cuda_intersect.build_boxes`` of
+    its trace table), which K2 and K4 walk; built once per Scene object and
+    kept on it."""
+    box = scene.__dict__.get("_chunk_boxes")
+    if box is None:
+        box = ci.build_boxes(scene, trace_tables(scene)[0].shape[0],
+                             ci.CHUNK_ROWS)
+        scene.__dict__["_chunk_boxes"] = box
+    return box
+
+
 def stream_boxes(scene):
     """The scene's superchunk boxes (``cuda_stream.build_superchunk_boxes``
     of its trace table), built once per Scene object and kept on it."""
@@ -97,9 +109,10 @@ def _query(scene, ro, rd, t_max, salt, eps, active, ray_id, any_hit, plain):
             any_hit, scene.all_opaque)
     if uses_stream(scene):
         fn = cs.prim_query_stream_plain if plain else cs.prim_query_stream
-        return fn(feat, accept, stream_boxes(scene), *args)
+        return fn(feat, accept, stream_boxes(scene), chunk_boxes(scene),
+                  *args)
     fn = ci.prim_query_plain if plain else ci.prim_query
-    return fn(feat, accept, *args)
+    return fn(feat, accept, chunk_boxes(scene), *args)
 
 
 def trace_closest_rows(scene, rows, ro, rd, t_max=None, salt=0, eps=1e-5,

@@ -1,7 +1,7 @@
 """Port parity: the dense trace's plain version (the CPU side of the K2
-kernel) against the JAX Pallas trace in interpret mode, with the
-tolerances of tests/test_pallas_intersect.py; and, on a card, the CUDA
-kernel against the plain version."""
+kernel, a walk over 128-triangle chunks) against the JAX Pallas trace in
+interpret mode, with the tolerances of tests/test_pallas_intersect.py, and
+against the brute-force query."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,7 +12,8 @@ from gi_raytracer_tpu.ops.pallas_intersect import pallas_closest_hit
 from gi_raytracer_tpu.render.camera import Camera as JaxCamera, primary_rays
 from gi_raytracer_tpu.scene import SceneBuilder as JaxBuilder
 from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
-from gi_raytracer_tpu_torch.ops.intersect import (trace_closest, trace_any,
+from gi_raytracer_tpu_torch.ops.intersect import (chunk_boxes, exact_hit,
+                                                  trace_closest, trace_any,
                                                   trace_tables)
 
 from _torch_parity import (jax_cornell, port_scene, TEST_CAMERA_POS,
@@ -152,18 +153,57 @@ def test_stochastic_alpha_matches_jax():
 
 
 def test_plain_trace_ray_blocks_agree(random_case):
-    """The plain version's ray blocking (it bounds memory at full size)
+    """The brute force's ray blocking (it bounds memory at full size)
     gives the same answer as one block."""
     _, ts, ro, rd = random_case
     feat, acc = trace_tables(ts)
     R = ro.shape[0]
     args = (feat, acc, _t(ro), _t(rd), torch.full((R,), ci.BIG),
             torch.ones(R, dtype=torch.bool), torch.arange(R), 0)
-    want = ci.prim_query_plain(*args)
+    want = ci.prim_query_brute(*args)
     old = ci._PLAIN_BLOCK
     try:
         ci._PLAIN_BLOCK = 4096          # 10 rays x 384 triangle slots
-        got = ci.prim_query_plain(*args)
+        got = ci.prim_query_brute(*args)
     finally:
         ci._PLAIN_BLOCK = old
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("limit,active_every,opaque", [
+    (None, 1, True), (3.0, 1, True), (None, 3, True), (5.0, 2, False)],
+    ids=["plain", "t_max", "active", "alpha"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_chunk_walk_matches_brute_force(random_case, limit, active_every,
+                                        opaque, any_hit):
+    """K2's plain walk (ordered 128-triangle chunks behind the tile cap)
+    against the brute force: equal hit masks, and for closest hit equal
+    winners (the exact t within rtol 1e-5); inactive lanes miss; the
+    per-tile counts within every ray testing every row of every visited
+    chunk.  ``alpha`` gives half the triangles opacity 0.5."""
+    _, ts, ro, rd = random_case
+    feat, acc = trace_tables(ts)
+    if not opaque:
+        acc = torch.where(torch.arange(acc.shape[0]) % 2 == 1,
+                          torch.clamp(acc, max=0.5), acc)
+    R = ro.shape[0]
+    act = torch.zeros(R, dtype=torch.bool)
+    act[::active_every] = True
+    args = (_t(ro), _t(rd), torch.full((R,), ci.BIG if limit is None
+                                       else limit), act,
+            torch.arange(R) * 3 + 1, 99, 1e-5, any_hit, opaque)
+    _, got, visits, tests = ci.prim_query(feat, acc, chunk_boxes(ts), *args,
+                                          return_counts=True)
+    _, want = ci.prim_query_brute(feat, acc, *args)
+    assert visits.shape == tests.shape == (-(-R // ci.RAY_TILE),)
+    assert (tests <= visits * ci.RAY_TILE * ci.CHUNK_ROWS).all()
+    assert (got[~act] == -1).all()
+    assert 10 < (want >= 0).sum() < act.sum()
+    assert torch.equal(got >= 0, want >= 0)
+    if not any_hit:
+        hits = want >= 0
+        tg = exact_hit(ts, _t(ro), _t(rd), got, 1e-5)[0]
+        tw = exact_hit(ts, _t(ro), _t(rd), want, 1e-5)[0]
+        assert (got == want)[hits].float().mean() >= 0.99
+        np.testing.assert_allclose(tg[hits].numpy(), tw[hits].numpy(),
+                                   rtol=1e-5)

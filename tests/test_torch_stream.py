@@ -1,8 +1,9 @@
 """Port parity of the superchunk trace (K4): its plain walk against the JAX
 ``_stream_trace`` in interpret mode (tests/test_pallas_intersect.py's
-thresholds) and against the brute-force dense query, with t limits, inactive
-lanes and stochastic alpha; and the routing of scenes past 16,384 triangles
-to it."""
+thresholds) and against the brute-force query, with t limits, inactive
+lanes and stochastic alpha; the two-level cull against the brute force and
+against the superchunk-only walk; and the routing of scenes past 16,384
+triangles to it."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -13,8 +14,8 @@ from gi_raytracer_tpu.ops import pallas_intersect as pi
 from gi_raytracer_tpu_torch.ops import _cuda
 from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
 from gi_raytracer_tpu_torch.ops import cuda_stream as cs
-from gi_raytracer_tpu_torch.ops.intersect import (VMEM_TRI_CAP, exact_hit,
-                                                  stream_boxes,
+from gi_raytracer_tpu_torch.ops.intersect import (VMEM_TRI_CAP, chunk_boxes,
+                                                  exact_hit, stream_boxes,
                                                   trace_closest, trace_any,
                                                   trace_tables, uses_stream)
 from gi_raytracer_tpu_torch.scene import SceneBuilder
@@ -84,8 +85,9 @@ def _port(ts, ro, rd, t_lim, active, rid, salt, any_hit, plain_brute=False):
             torch.from_numpy(t_lim), torch.from_numpy(active),
             torch.from_numpy(rid), salt, 1e-5, any_hit, ts.all_opaque)
     if plain_brute:
-        return ci.prim_query_plain(feat, acc, *args)[1]
-    return cs.prim_query_stream_plain(feat, acc, stream_boxes(ts), *args)[1]
+        return ci.prim_query_brute(feat, acc, *args)[1]
+    return cs.prim_query_stream_plain(feat, acc, stream_boxes(ts),
+                                      chunk_boxes(ts), *args)[1]
 
 
 def _assert_closest_match(ts, ro, rd, got, want):
@@ -146,11 +148,14 @@ def test_stream_walk_matches_brute_force(case, any_hit):
 def test_stream_walk_culls_and_counts_visits():
     """Coherent rays from one point visit fewer superchunks than there
     are, and the per-tile counters report each tile's walk: the tests made
-    are at most those of every ray in every visited superchunk, and any
-    hit, which stops at its first hit, makes fewer than closest hit."""
+    are at most those of every ray in every visited superchunk, at most
+    those of the superchunk-only walk (every row of a needed superchunk),
+    and any hit, which stops at its first hit, makes fewer than closest
+    hit."""
     ts = terrain_scene(SceneBuilder, 80).build(device="cpu")
     feat, acc = trace_tables(ts)
     box = stream_boxes(ts)
+    cbox = chunk_boxes(ts)
     n_sc = box.shape[1]
     assert n_sc == cs.n_superchunks(feat.shape[0]) == 7
     g = torch.Generator().manual_seed(0)
@@ -161,16 +166,22 @@ def test_stream_walk_culls_and_counts_visits():
     rd = rd / rd.norm(dim=1, keepdim=True)
     args = (ro, rd, torch.full((600,), ci.BIG), torch.ones(600, dtype=bool),
             torch.arange(600), 0)
-    _, p, visits, tests = cs.prim_query_stream(feat, acc, box, *args,
+    _, p, visits, tests = cs.prim_query_stream(feat, acc, box, cbox, *args,
                                                return_counts=True)
     assert visits.shape == tests.shape == (3,)
     assert visits.dtype == tests.dtype == torch.int32
     assert (visits >= 1).all() and (visits < n_sc).all()
     assert (tests > 0).all()
     assert (tests <= visits * cs.RAY_TILE * cs.SC_TRIS).all()
-    assert torch.equal(p, ci.prim_query_plain(feat, acc, *args)[1])
+    assert torch.equal(p, ci.prim_query_brute(feat, acc, *args)[1])
+    _, p_sc, v_sc, t_sc = ci.walk_plain(feat, acc, box, box, *args, 1e-5,
+                                        False, True, True, cs.SC_TRIS,
+                                        cs.SC_TRIS)
+    assert torch.equal(p_sc, p) and torch.equal(v_sc, visits)
+    assert (tests <= t_sc).all() and tests.sum() * 4 < t_sc.sum()
     _, _, _, any_tests = cs.prim_query_stream(
-        feat, acc, box, *args, 1e-5, True, ts.all_opaque, return_counts=True)
+        feat, acc, box, cbox, *args, 1e-5, True, ts.all_opaque,
+        return_counts=True)
     assert (any_tests < tests).all()
 
 
@@ -194,13 +205,58 @@ def test_scenes_past_the_cap_route_to_the_stream_trace():
         assert _cuda.plain_calls[used] == 2 and _cuda.plain_calls[unused] == 0
         assert torch.equal(occ, hit.prim >= 0)
         feat, acc = trace_tables(scene)
-        _, brute = ci.prim_query_plain(feat, acc, ro, rd,
+        _, brute = ci.prim_query_brute(feat, acc, ro, rd,
                                        torch.full((300,), ci.BIG),
                                        torch.ones(300, dtype=bool),
                                        torch.arange(300), 0)
         assert torch.equal(hit.prim >= 0, brute >= 0)
         assert (hit.prim == brute).float().mean() >= 0.99
     with pytest.raises(ValueError):
-        cs._stream_cuda(*trace_tables(big), stream_boxes(big), ro, rd,
+        cs._stream_cuda(*trace_tables(big), stream_boxes(big),
+                        chunk_boxes(big), ro, rd,
                         torch.full((300,), ci.BIG), torch.ones(300, dtype=bool),
                         torch.arange(300), 0, 1e-5, False, True, False)
+
+
+@pytest.mark.parametrize("walk", ["K4", "K2"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_chunk_cull_keeps_the_brute_force_winner(case, walk, any_hit):
+    """On the random soup (SAH leaves of random triangles: the 128-row
+    chunk boxes overlap one another) the two-level walk (K4) and the chunk
+    walk (K2) keep the brute force's hit mask, and its winner on every
+    lane but counted near ties: lanes whose winners' exact t differ by at
+    most 2^-7 relative (the approximate ordering t).  The per-tile counts
+    stay within every ray of a visiting tile testing every row of a
+    visited group."""
+    _, ts, ro, rd, t_lim, active, rid = _inputs(case, 7.0, 1, 5)
+    feat, acc = trace_tables(ts)
+    cbox = chunk_boxes(ts)
+    lo, hi = cbox[0:3], cbox[3:6]
+    # the soup's chunk boxes overlap: most pairs of them intersect
+    overlap = ((lo[:, :, None] <= hi[:, None, :])
+               & (hi[:, :, None] >= lo[:, None, :])).all(0)
+    assert overlap.float().mean() > 0.5
+    args = (torch.from_numpy(ro), torch.from_numpy(rd),
+            torch.from_numpy(t_lim), torch.from_numpy(active),
+            torch.from_numpy(rid), 23, 1e-5, any_hit, ts.all_opaque)
+    if walk == "K4":
+        _, got, visits, tests = cs.prim_query_stream_plain(
+            feat, acc, stream_boxes(ts), cbox, *args, return_counts=True)
+        rows = cs.SC_TRIS
+    else:
+        _, got, visits, tests = ci.prim_query_plain(feat, acc, cbox, *args,
+                                                    return_counts=True)
+        rows = ci.CHUNK_ROWS
+    _, want = ci.prim_query_brute(feat, acc, *args)
+    assert (tests <= visits * cs.RAY_TILE * rows).all()
+    assert (tests > 0).all()
+    assert torch.equal(got >= 0, want >= 0)
+    if any_hit:
+        return
+    o, d = torch.from_numpy(ro), torch.from_numpy(rd)
+    tg = exact_hit(ts, o, d, got, 1e-5)[0]
+    tw = exact_hit(ts, o, d, want, 1e-5)[0]
+    differ = got != want
+    rel = ((tg - tw).abs() / tw.abs())[differ]
+    assert (rel <= 2.0 ** -7).all()
+    assert differ.sum() <= 0.01 * R
