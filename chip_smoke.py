@@ -24,11 +24,18 @@ card at the paths' shapes:
   256x256, 4 spp, depth 8 render with it (K4 closest and any hit, K3).
 
 K2 and K4 (the two launches of ``csrc/walk.cuh``) are also timed on the
-traces of one round of their photon passes, and every time of K2 and K4
-comes with the ray-triangle tests the walk made and the bound from them.
-Each render is timed after a warm-up render; one render of the largest
-terrain and one of the glass box, and the Cornell and glass photon passes,
-are then profiled (device ms per kernel and the device's busy share).
+traces of one round of their photon passes, and every time of K2, K4 and
+K1 comes with the ray-triangle tests the walks made and the bound from
+them.  K1 is held against its plain version on one 512x512 wave (about
+four lanes a resident thread, so its lane queue refills) of the Cornell
+box (its feature table walked from shared memory) and of an
+8,342-triangle glass box (a table past a block's shared memory, walked
+from device memory), each with and without a photon map; K1's and K3's
+resources on the card are printed.
+Each render is timed after a warm-up render; one Cornell render with the
+map, one render of the largest terrain and one of the glass box, and the
+Cornell and glass photon passes, are then profiled (device ms per kernel
+and the device's busy share).
 Every phase prints its seconds; any failure raises, and the script exits
 non-zero.  It needs a CUDA device and never falls back to the CPU.
 
@@ -86,6 +93,9 @@ K1_COUNT_RTOL = 5e-4       # closest / shadow ray counts
 K3_RTOL, K3_ATOL = 2e-4, 1e-6
 K3_CLOSE = 0.999
 K3_DENSE_WINDOW = 512      # dense-focus queries: windows past this many
+# K1's second scene: the Cornell box with its glass sphere subdivided 5
+# times, whose feature table (66 chunks) does not fit shared memory
+K1_GLASS_SUBDIVS, K1_GLASS_TRIS, K1_GLASS_PHOTONS = 5, 8342, 50_000
 MIN_STORED = 0.98          # of the photon slots
 
 # the card's peak rates for the bound (H100 SXM datasheet)
@@ -207,7 +217,9 @@ def profile(name, fn, top=8, host=True):
     kernels = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
-            key = e.name().split("(")[0]        # no argument list
+            # no namespace qualifier, no argument list
+            key = e.name().replace("(anonymous namespace)::", "") \
+                .split("(")[0]
             kernels[key] = kernels.get(key, 0.0) + e.duration_ns() / 1e6
     busy = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
@@ -277,6 +289,20 @@ def k1_wave(scene, cfg, cam):
     ms = cuda_ms(lambda: radiance_wave_mega(scene, cfg, *wave[:4], lane, 0,
                                             None), 5)
     return wave, int(n_closest), ms
+
+
+def k3_queries(scene, cfg, cam):
+    """The first 65,536 hit points of one 512x512 Cornell wave's primary
+    rays and their directions back to the camera: K3's queries."""
+    import torch
+    from gi_raytracer_tpu_torch.ops.intersect import trace_closest
+    from gi_raytracer_tpu_torch.render import Renderer
+    ro, rd, _, _ = Renderer(scene, cam, cfg, WIDTH, HEIGHT).wave_inputs(0)
+    hit = trace_closest(scene, ro, rd)
+    ok = torch.nonzero(hit.prim >= 0).squeeze(1)[:65536]
+    require(ok.numel() == 65536, ok.numel())
+    return ((ro[ok] + hit.t[ok, None] * rd[ok]).contiguous(),
+            (-rd[ok]).contiguous())
 
 
 def cornell_path(scene, cfg, cam):
@@ -388,12 +414,20 @@ def main(argv) -> int:
             log(f"K1 wave without the map: {WIDTH}x{HEIGHT} ({n_closest} "
                 f"closest-hit rays) ms {ms:.3f}")
         with Phase("Cornell path"):
-            cornell_path(scene, cfg, cam)
+            pm = cornell_path(scene, cfg, cam)
+        with Phase("K3"):
+            from gi_raytracer_tpu_torch.render.photon_knn import (
+                sample_photons_tiled)
+            pts, dirs = k3_queries(scene, cfg, cam)
+            ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K),
+                         20)
+            log(f"K3 on {pts.shape[0]} queries with the map: ms {ms:.4f}")
         log(nvidia_smi_line())
         return 0
 
     from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
     from gi_raytracer_tpu_torch.ops import cuda_stream as cs
+    from gi_raytracer_tpu_torch.ops.cuda_megakernel import mega_info
     from gi_raytracer_tpu_torch.ops.intersect import (
         chunk_boxes, stream_boxes, trace_closest, trace_tables, uses_stream)
     from gi_raytracer_tpu_torch.render import photon as photon_mod
@@ -402,7 +436,7 @@ def main(argv) -> int:
     from gi_raytracer_tpu_torch.render.photon import (
         PhotonBatch, build_photon_map, sample_photons, trace_photons)
     from gi_raytracer_tpu_torch.render.photon_knn import (
-        _cells, _window, sample_photons_tiled)
+        _cells, _window, knn_info, sample_photons_tiled)
     from gi_raytracer_tpu_torch.scene import terrain
     from gi_raytracer_tpu_torch.scene.cornell import GLASS_SUBDIVS, GLASS_TRIS
 
@@ -511,6 +545,8 @@ def main(argv) -> int:
         pm = drive("Cornell main path", lambda: cornell_path(scene, cfg, cam),
                    need=("intersect", "megakernel", "knn"),
                    absent=("stream",))
+    profile("Cornell render with the map",
+            Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm).render)
     with Phase("Cornell photon pass profile"):
         profile("Cornell photon pass", lambda: trace_photons(scene, cfg),
                 host=False)
@@ -607,51 +643,100 @@ def main(argv) -> int:
 
     # K1 and K3 are held against their plain versions with the main path's
     # photon map
+    def k1_gate(name, scn, wave, prim_rows, pmap):
+        """K1 against the plain staged wave on ``wave`` (lanes off, ray
+        counts); returns the largest difference and the plain wave's ms.
+        At 512x512 the wave has about four lanes a resident thread, so the
+        kernel's lane queue refills ended paths and warps mix depths."""
+        ro, rd, sx, sy, lane = wave
+        R = ro.shape[0]
+        got, (kc, ks) = radiance_wave_mega(scn, cfg, ro, rd, sx, sy, lane, 0,
+                                           pmap)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, (wc, ws) = radiance_wave(scn, cfg, ro, rd, sx, sy, 0, pmap,
+                                       lane_ids=lane, prim_rows=prim_rows,
+                                       plain=True)
+        end.record()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max(-1).values
+        off = (err > K1_LANE_TOL).float().mean().item()
+        kc, ks, wc, ws = int(kc), int(ks), int(wc), int(ws)
+        log(f"{name}: lanes {R} off>{K1_LANE_TOL} {off:.6f} max abs err "
+            f"{err.max().item():.3e} closest {kc}/{wc} shadow {ks}/{ws} "
+            f"finite {bool(torch.isfinite(got).all())}; plain ms "
+            f"{start.elapsed_time(end):.3f}")
+        require(torch.isfinite(got).all(), f"{name}: finite")
+        require(off < K1_MAX_OFF, (name, off))
+        require(abs(kc - wc) <= K1_COUNT_RTOL * wc, (name, kc, wc))
+        require(abs(ks - ws) <= K1_COUNT_RTOL * ws, (name, ks, ws))
+        return err.max().item(), start.elapsed_time(end)
+
+    def k1_tests(scn, wave):
+        """The ray-triangle tests (closest, shadow) K1 makes on ``wave``
+        without the map."""
+        tests = torch.zeros(2, dtype=torch.int64, device=dev)
+        radiance_wave_mega(scn, cfg, *wave, 0, None, tests=tests)
+        return tests.tolist()
+
     with Phase("K1 megakernel vs plain"):
-        r128 = Renderer(scene, cam, cfg, 128, 128)
-        ro, rd, sx, sy = r128.wave_inputs(0)
-        R = ro.shape[0]
-        lane = torch.arange(R, device=dev)
-        rows_tab = r128.prim_rows()
-        errs = {}
-        for name, pmap in (("no map", None), ("map", pm)):
-            got, (kc, ks) = radiance_wave_mega(scene, cfg, ro, rd, sx, sy,
-                                               lane, 0, pmap)
-            want, (wc, ws) = radiance_wave(scene, cfg, ro, rd, sx, sy, 0,
-                                           pmap, lane_ids=lane,
-                                           prim_rows=rows_tab, plain=True)
-            err = (got - want).abs().max(-1).values
-            off = (err > K1_LANE_TOL).float().mean().item()
-            kc, ks, wc, ws = int(kc), int(ks), int(wc), int(ws)
-            log(f"K1 {name}: lanes {R} off>{K1_LANE_TOL} {off:.6f} "
-                f"max abs err {err.max().item():.3e} closest {kc}/{wc} "
-                f"shadow {ks}/{ws} finite {bool(torch.isfinite(got).all())}")
-            require(torch.isfinite(got).all(), f"K1 {name}: finite")
-            require(off < K1_MAX_OFF, (name, off))
-            require(abs(kc - wc) <= K1_COUNT_RTOL * wc, (kc, wc))
-            require(abs(ks - ws) <= K1_COUNT_RTOL * ws, (ks, ws))
-            errs[name] = (err.max().item(), kc)
-        ms128 = cuda_ms(lambda: radiance_wave_mega(scene, cfg, ro, rd, sx,
-                                                   sy, lane, 0, None), 5)
-        (ro, rd, sx, sy, lane), gc512, ms = k1_wave(scene, cfg, cam)
-        R = ro.shape[0]
-        plain_ms = cuda_ms(lambda: radiance_wave(
-            scene, cfg, ro, rd, sx, sy, 0, None, lane_ids=lane,
-            prim_rows=rows_tab, plain=True), 1)
-        # the closest-hit tests alone: every alive lane-bounce walks every
-        # triangle slot (shadow rays, shading and the rest add to it)
-        b_ms, b_by = bound(gc512 * Tp * OPS_PER_TEST,
-                           R * (24 + 4 + 32) + DEPTH * R * 8
-                           + Tp * (256 + 64))
-        log(f"K1 wave without the map: 128x128 ms {ms128:.3f}; 512x512 "
-            f"({R} lanes, {gc512} closest-hit rays) ms {ms:.3f} plain "
-            f"ms {plain_ms:.3f} bound ms {b_ms:.3f} ({b_by})")
+        glass8k = cornell_box(SceneBuilder, meshgen, True,
+                              K1_GLASS_SUBDIVS).build(device=dev)
+        require(glass8k.n_tris == K1_GLASS_TRIS, glass8k.n_tris)
+        require(mega_why_not(glass8k, cfg) == [], mega_why_not(glass8k, cfg))
+        for scn in (scene, glass8k):
+            info = mega_info(scn)
+            log(f"K1 resources, {scn.n_tris} triangles: {json.dumps(info)}")
+            require(info["blocks_per_sm"] >= 1, info)
+            require(info["table_in_smem"] == (scn is scene),
+                    ("the Cornell table in shared memory, the glass box's "
+                     "not", info))
+        batch8k = trace_photons(glass8k, cfg.replace(
+            photons=K1_GLASS_PHOTONS))
+        gpm8k = build_photon_map(batch8k, glass8k.world_min.cpu().numpy(),
+                                 glass8k.world_max.cpu().numpy())
+        wave, gc512, ms = k1_wave(scene, cfg, cam)
+        R = wave[0].shape[0]
+        tests = k1_tests(scene, wave)
+        glass_r = Renderer(glass8k, cam, cfg, WIDTH, HEIGHT)
+        glass_wave = glass_r.wave_inputs(0) + (wave[4],)
+        glass_ms = cuda_ms(lambda: radiance_wave_mega(
+            glass8k, cfg, *glass_wave, 0, None), 5)
+        log(f"K1 glass {glass8k.n_tris} {WIDTH}x{HEIGHT} ms {glass_ms:.3f} "
+            f"tests {k1_tests(glass8k, glass_wave)}")
+        errs, plain = {}, {}
+        for scn, label, w, prim_rows, maps in (
+                (scene, "Cornell", wave,
+                 Renderer(scene, cam, cfg, WIDTH, HEIGHT).prim_rows(),
+                 (None, pm)),
+                (glass8k, f"glass {glass8k.n_tris}", glass_wave,
+                 glass_r.prim_rows(), (None, gpm8k))):
+            for pmap in maps:
+                name = (f"K1 {label} {WIDTH}x{HEIGHT} "
+                        f"{'map' if pmap else 'no map'}")
+                errs[name], plain[name] = k1_gate(name, scn, w, prim_rows,
+                                                  pmap)
+        plain_ms = plain[f"K1 Cornell {WIDTH}x{HEIGHT} no map"]
+        del batch8k, gpm8k, glass8k, glass_r, glass_wave
+        # the bound from the tests the closest and shadow walks made (the
+        # box tests, shading and the rest add to them); beside it the
+        # brute force's, every closest-hit ray against every row
+        nbytes = R * (24 + 4 + 32) + DEPTH * R * 8 + Tp * (256 + 64)
+        b_ms, b_by = bound(sum(tests) * OPS_PER_TEST, nbytes)
+        brute_ms, _ = bound(gc512 * Tp * OPS_PER_TEST, nbytes)
+        log(f"K1 wave without the map: {WIDTH}x{HEIGHT} ({R} lanes, "
+            f"{gc512} closest-hit rays) ms {ms:.3f} plain ms {plain_ms:.3f}; "
+            f"ray-triangle tests made closest {tests[0]} shadow {tests[1]} "
+            f"(brute force closest {gc512 * Tp}); bound ms {b_ms:.4f} "
+            f"({b_by}; brute force {brute_ms:.3f})")
         rows["megakernel"] = dict(
             name="megakernel", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/megakernel.cu",
             replaces="gi_raytracer_tpu/ops/pallas_megakernel.py:344",
-            max_abs_err=errs["map"][0], ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            max_abs_err=errs[f"K1 Cornell {WIDTH}x{HEIGHT} map"], ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del wave
 
     def knn_cost(pmap, pts):
         """(FP32 operations, bytes) of a kNN estimate: d^2 of every window
@@ -666,25 +751,24 @@ def main(argv) -> int:
         return int(cand.sum()) * OPS_PER_CANDIDATE, nbytes, cand
 
     with Phase("K3 knn vs plain"):
-        hit = trace_closest(scene, ro_p, rd_p)
-        ok = torch.nonzero(hit.prim >= 0).squeeze(1)[:65536]
-        require(ok.numel() == 65536, ok.numel())
-        pts = (ro_p[ok] + hit.t[ok, None] * rd_p[ok]).contiguous()
-        dirs = (-rd_p[ok]).contiguous()
+        pts, dirs = k3_queries(scene, cfg, cam)
         got = sample_photons_tiled(pm, pts, dirs, KNN_K)
         want = sample_photons(pm, pts, dirs, KNN_K)
         err = (got - want).abs()
         close = (err <= K3_ATOL + K3_RTOL * want.abs()).all(-1)
         frac = close.float().mean().item()
         nonzero = (want.abs().sum(-1) > 0).float().mean().item()
-        ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K), 5)
+        ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K), 20)
         plain_ms = cuda_ms(lambda: sample_photons(pm, pts, dirs, KNN_K), 1)
         ops, nbytes, _ = knn_cost(pm, pts)
         b_ms, b_by = bound(ops, nbytes)
         log(f"K3 queries {pts.shape[0]} nonzero {nonzero:.4f} close "
             f"{frac:.6f} max abs err {err.max().item():.3e}")
-        log(f"K3 ms {ms:.3f} plain ms {plain_ms:.3f} bound ms {b_ms:.4f} "
-            f"({b_by})")
+        log(f"K3 ms {ms:.4f} plain ms {plain_ms:.3f} bound ms {b_ms:.4f} "
+            f"({b_by}); window candidates mean "
+            f"{knn_cost(pm, pts)[2].float().mean().item():.2f}; resources "
+            f"{json.dumps(knn_info())}")
+        require(knn_info()["local_bytes"] == 0, knn_info())
         require(frac >= K3_CLOSE, frac)
         require(nonzero > 0.0, nonzero)
         rows["knn"] = dict(

@@ -50,11 +50,12 @@ _VP, _F, _I, _U = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "gi_trace_launch": [_VP] * 8 + [_I, _I, _U, _F, _I, _I] + [_VP] * 5,
     "gi_trace_info": [_I, _VP],
-    "gi_mega_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                       _I, _U, _F, _F, _I, _F, _F, _F, _I, _I, _I,
-                       _VP, _VP, _VP],
+    "gi_mega_launch": [_VP] * 10 + [_I, _I, _I, _I, _U, _F, _F, _I, _F, _F,
+                                    _F, _I, _I, _I] + [_VP] * 5,
+    "gi_mega_info": [_I, _VP],
     "gi_knn_launch": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                       _F, _F, _F, _F, _F, _F, _I, _I, _VP, _VP],
+    "gi_knn_info": [_VP],
     "gi_stream_launch": [_VP] * 9 + [_I, _I, _I, _U, _F, _I, _I]
     + [_VP] * 5,
     "gi_stream_info": [_I, _VP],

@@ -5,6 +5,11 @@ Counterpart of ``gi_raytracer_tpu.ops.pallas_megakernel``.  One launch of
 hit, shading, secondary direction, shadow rays, direct light, Russian
 roulette and accumulation, plus one caustic query record per bounce.  The
 records then go through the kNN kernel (:func:`_caustic_estimate`).
+The kernel walks the scene's 128-row chunks, skipping those whose boxes a
+ray does not enter before its best hit, with each (ray, chunk) pair tested
+by a whole warp; its tables (:func:`build_mega_tables`) are the shade
+rows, the feature rows as four planes, the accept column and the chunk
+boxes.  :func:`mega_info` reports the kernel's resources on the card.
 
 The plain version is the staged ``integrator.radiance_wave`` (the same
 estimator and random streams, built on the plain trace):
@@ -15,11 +20,14 @@ for CUDA tensors.  Scope: triangle-only scenes, no fog, no image textures,
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..render.shading import build_prim_rows, PR_IOR, PR_W
 from . import _cuda
 from . import cuda_intersect as ci
+from .intersect import chunk_boxes, trace_tables
 
 MEGA_TRI_CAP = 24_000
 MAX_DEPTH = 16
@@ -54,17 +62,19 @@ def mega_why_not(scene, cfg) -> list:
 
 
 def build_mega_tables(scene):
-    """((T_pad, 64) attr rows, (T_pad, 16) MT features).  Pad rows set
-    PR_IOR to 1 (with opacity 0 the accept probability is 0) and have zero
-    geometry, so they never pass the test."""
+    """((T_pad, 64) attr rows, (4, T_pad, 4) MT features as four planes of
+    16-byte quads, (T_pad,) accept values, (8, T_pad / 128) chunk boxes).
+    Pad rows set PR_IOR to 1 (with opacity 0 the accept probability is 0)
+    and have zero geometry, so they never pass the test."""
     rows = build_prim_rows(scene).detach().float()
     pad = (-rows.shape[0]) % ci.TRI_PAD
     if pad:
         prow = torch.zeros((pad, PR_W), dtype=rows.dtype, device=rows.device)
         prow[:, PR_IOR] = 1.0
         rows = torch.cat([rows, prow], 0)
-    feat, _ = ci.build_tri_features(scene)
-    return rows.contiguous(), feat
+    feat, accept = trace_tables(scene)
+    planes = feat.view(-1, 4, 4).transpose(0, 1).contiguous()
+    return rows.contiguous(), planes, accept, chunk_boxes(scene)
 
 
 def mega_tables(scene):
@@ -77,30 +87,50 @@ def mega_tables(scene):
 
 
 def radiance_wave_mega(scene, cfg, ro, rd, sx_all, sy_all, lane_u32,
-                       wave_salt=0, photon_map=None):
+                       wave_salt=0, photon_map=None, tests=None):
     """One radiance wave: (radiance (R,3), (n_closest, n_shadow)).
 
     ``sx_all``/``sy_all`` (D, R) are the per-bounce BSDF samples, ``lane_u32``
-    (R,) the global lane ids keying every stochastic stream."""
+    (R,) the global lane ids keying every stochastic stream.  Kernel
+    measurements only: ``tests``, a (2,) int64 CUDA tensor, receives the
+    ray-triangle tests the closest and the shadow walks made."""
     why = mega_why_not(scene, cfg)
     if why:
         raise ValueError("scene is not megakernel-eligible: " + "; ".join(why))
     if ro.device.type == "cpu":
+        if tests is not None:
+            raise ValueError("test counts are the kernel's; the plain wave "
+                             "has none")
         from ..render.integrator import radiance_wave
         return radiance_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt,
                              photon_map, lane_ids=lane_u32)
     return _mega_cuda(scene, cfg, ro, rd, sx_all, sy_all, lane_u32,
-                      wave_salt, photon_map)
+                      wave_salt, photon_map, tests)
+
+
+def mega_info(scene) -> dict:
+    """K1's resources on the card for the scene's table: resident blocks
+    per SM, registers and local (spill) bytes per thread, dynamic and
+    static shared bytes per block, whether the feature table is walked
+    from shared memory, and threads per block."""
+    out = (ctypes.c_int * 7)()
+    t_pad = mega_tables(scene)[0].shape[0]
+    _cuda.check(_cuda.lib().gi_mega_info(t_pad, ctypes.addressof(out)),
+                "gi_mega_info")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "dynamic_smem", "static_smem", "table_in_smem",
+                     "threads"), list(out)))
 
 
 @torch.no_grad()
 def _mega_cuda(scene, cfg, ro, rd, sx_all, sy_all, lane_u32, wave_salt,
-               photon_map):
+               photon_map, tests=None):
     R = ro.shape[0]
     D = int(cfg.max_depth)
     L = scene.lights.count
     dev = ro.device
-    attr, feat = mega_tables(scene)
+    attr, planes, accept, cbox = mega_tables(scene)
+    t_pad = attr.shape[0]
     lights = torch.cat([scene.lights.pos, scene.lights.col,
                         scene.lights.rad[:, None],
                         torch.zeros((L, 1), device=dev)], 1).float().contiguous()
@@ -112,12 +142,20 @@ def _mega_cuda(scene, cfg, ro, rd, sx_all, sy_all, lane_u32, wave_salt,
         raise ValueError(f"sx_all/sy_all must be ({D}, {R})")
     rid = (lane_u32.to(torch.int64) & 0xFFFFFFFF).to(torch.int32).contiguous()
     _cuda.require_cuda("radiance_wave_mega", ro_c, rd_c, sx, sy, rid, attr,
-                       feat, lights)
+                       planes, accept, cbox, lights)
     for what, t, shape in (("ro", ro_c, (R, 3)), ("rd", rd_c, (R, 3)),
                            ("lane ids", rid, (R,)),
-                           ("attr", attr, (feat.shape[0], PR_W)),
+                           ("attr", attr, (t_pad, PR_W)),
+                           ("features", planes, (4, t_pad, 4)),
+                           ("accept", accept, (t_pad,)),
+                           ("chunk boxes", cbox, (8, t_pad // ci.CHUNK_ROWS)),
                            ("lights", lights, (L, 8))):
         _cuda.require_shape(f"radiance_wave_mega {what}", t, shape)
+    if tests is not None:
+        _cuda.require_cuda("radiance_wave_mega tests", tests)
+        _cuda.require_shape("radiance_wave_mega tests", tests, (2,))
+        if tests.dtype != torch.int64:
+            raise ValueError("radiance_wave_mega tests: expected int64")
     with_caustic = photon_map is not None
     out = torch.empty((R, 8), dtype=torch.float32, device=dev)
     rec = (torch.empty((R, D, 9), dtype=torch.float32, device=dev)
@@ -125,15 +163,19 @@ def _mega_cuda(scene, cfg, ro, rd, sx_all, sy_all, lane_u32, wave_salt,
     if R == 0:
         z = torch.zeros((), dtype=torch.int64, device=dev)
         return torch.zeros((0, 3), dtype=ro.dtype, device=dev), (z, z)
+    queue = torch.empty(1, dtype=torch.int32, device=dev)
     amb = [float(a) for a in cfg.ambient]
     code = _cuda.lib().gi_mega_launch(
         ro_c.data_ptr(), rd_c.data_ptr(), sx.data_ptr(), sy.data_ptr(),
-        rid.data_ptr(), attr.data_ptr(), feat.data_ptr(), lights.data_ptr(),
-        R, attr.shape[0], D, L, int(wave_salt) & 0xFFFFFFFF,
+        rid.data_ptr(), attr.data_ptr(), planes.data_ptr(),
+        accept.data_ptr(), cbox.data_ptr(), lights.data_ptr(),
+        R, t_pad, D, L, int(wave_salt) & 0xFFFFFFFF,
         float(cfg.epsilon), float(cfg.shadow_bias),
         int(cfg.min_depth), amb[0], amb[1], amb[2], int(scene.all_opaque),
-        int(with_caustic), int(cfg.caustic_max_depth), out.data_ptr(),
-        rec.data_ptr() if with_caustic else None, _cuda.stream_ptr(dev))
+        int(with_caustic), int(cfg.caustic_max_depth),
+        out.data_ptr(), rec.data_ptr() if with_caustic else None,
+        queue.data_ptr(), tests.data_ptr() if tests is not None else None,
+        _cuda.stream_ptr(dev))
     _cuda.check(code, "gi_mega_launch")
     _cuda.launches["megakernel"] += 1
 

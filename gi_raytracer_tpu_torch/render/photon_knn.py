@@ -12,11 +12,15 @@ exactly the k nearest (lower window slot first on ties), as
 
 The TPU tile machinery (Morton tiles, the chunk table, tile classes, pass 2
 and the chunk-row residual) is not ported: it exists for the TPU's layout.
+The kernel answers each query with one warp (:func:`knn_info` reports its
+resources on the card).
 The render path runs under ``torch.no_grad()``; the kNN backward comes
 with training, so the CUDA wrapper raises on inputs that need a gradient.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -25,7 +29,7 @@ from ..ops import _cuda
 from .geom import PI
 
 FAR = 1e29        # queries at or past this x are far sentinels (estimate 0)
-KMAX = 64         # the kernel's per-thread k bound (csrc/knn.cu)
+KMAX = 64         # the kernel's k bound (csrc/knn.cu)
 
 
 def _cells(pm, point):
@@ -134,6 +138,35 @@ def sample_photons_tiled(pm, point, direction, k):
     return _knn_cuda(pm, point, direction, k)
 
 
+def knn_info() -> dict:
+    """The kNN kernel's resources on the card: resident blocks per SM,
+    registers and local (spill) bytes per thread, dynamic and static shared
+    bytes per block, threads per block, and the window candidates a warp
+    keeps in registers."""
+    out = (ctypes.c_int * 7)()
+    _cuda.check(_cuda.lib().gi_knn_info(ctypes.addressof(out)), "gi_knn_info")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "dynamic_smem", "static_smem", "threads",
+                     "register_candidates"), list(out)))
+
+
+def _knn_tables(pm):
+    """The map as the kernel reads it (float32 photons, uint8 valid flags,
+    int32 cell ranges, the grid's origin and inverse cell size as Python
+    floats), built once per PhotonMap object and kept on it: each render
+    wave then launches the kernel without a conversion or a host sync."""
+    tab = pm.__dict__.get("_knn_tables")
+    if tab is None:
+        tab = (pm.pos.float().contiguous(), pm.dir.float().contiguous(),
+               pm.col.float().contiguous(),
+               pm.valid.to(torch.uint8).contiguous(),
+               pm.cell_start.to(torch.int32).contiguous(),
+               [float(x) for x in pm.grid_min.tolist()],
+               [float(x) for x in pm.inv_cell.tolist()])
+        pm.__dict__["_knn_tables"] = tab
+    return tab
+
+
 def _knn_cuda(pm, point, direction, k):
     if point.requires_grad or pm.col.requires_grad or pm.pos.requires_grad:
         raise NotImplementedError(
@@ -144,11 +177,7 @@ def _knn_cuda(pm, point, direction, k):
     R = point.shape[0]
     q = point.float().contiguous()
     qd = direction.float().contiguous()
-    ppos = pm.pos.float().contiguous()
-    pdir = pm.dir.float().contiguous()
-    pcol = pm.col.float().contiguous()
-    pval = pm.valid.to(torch.uint8).contiguous()
-    cs = pm.cell_start.to(torch.int32).contiguous()
+    ppos, pdir, pcol, pval, cs, g, iv = _knn_tables(pm)
     _cuda.require_cuda("knn", q, qd, ppos, pdir, pcol, pval, cs)
     P = ppos.shape[0]
     nx, ny, nz = (int(x) for x in pm.dims)
@@ -161,8 +190,6 @@ def _knn_cuda(pm, point, direction, k):
     out = torch.empty((R, 3), dtype=torch.float32, device=q.device)
     if R == 0:
         return out.to(point.dtype)
-    g = [float(x) for x in pm.grid_min.tolist()]
-    iv = [float(x) for x in pm.inv_cell.tolist()]
     code = _cuda.lib().gi_knn_launch(
         q.data_ptr(), qd.data_ptr(), R, ppos.data_ptr(), pdir.data_ptr(),
         pcol.data_ptr(), pval.data_ptr(), cs.data_ptr(), nx, ny, nz,

@@ -16,7 +16,8 @@ from gi_raytracer_tpu_torch.config import RenderConfig
 from gi_raytracer_tpu_torch.ops import _cuda
 from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
 from gi_raytracer_tpu_torch.ops import cuda_stream as cs
-from gi_raytracer_tpu_torch.ops.cuda_megakernel import radiance_wave_mega
+from gi_raytracer_tpu_torch.ops.cuda_megakernel import (mega_info,
+                                                        radiance_wave_mega)
 from gi_raytracer_tpu_torch.ops.intersect import (chunk_boxes, stream_boxes,
                                                   trace_closest, trace_tables)
 from gi_raytracer_tpu_torch.render import Camera, Renderer
@@ -24,8 +25,11 @@ from gi_raytracer_tpu_torch.render.geom import normalize
 from gi_raytracer_tpu_torch.render.integrator import radiance_wave
 from gi_raytracer_tpu_torch.render.photon import (PhotonBatch,
                                                   build_photon_map,
-                                                  sample_photons)
-from gi_raytracer_tpu_torch.render.photon_knn import sample_photons_tiled
+                                                  sample_photons,
+                                                  trace_photons)
+from gi_raytracer_tpu_torch.render.photon_knn import (_cells, _window,
+                                                     knn_info,
+                                                     sample_photons_tiled)
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
 from gi_raytracer_tpu_torch.scene.cornell import (cornell_box, CAMERA_POS,
                                                   CAMERA_LOOK_AT)
@@ -102,10 +106,59 @@ def _checker_ball(dev):
     return b.build(device=dev)
 
 
+def _half_opaque(dev):
+    """A floor, a back wall and a half-opaque sphere (opacity 0.5, ior 1)
+    in front of a mirror quad: K1's alpha lottery on closest and any
+    hits."""
+    b = SceneBuilder()
+    white = b.add_texture_const((0.9, 0.9, 0.9))
+    black = b.add_texture_const((0.0, 0.0, 0.0))
+    wall = b.add_material(white, black, 1.0, 1.0, 1.0)
+    b.add_triangles(meshgen.quad_mesh((-4, -1, -4), (4, -1, -4), (-4, -1, 4),
+                                      (4, -1, 4)), mat_id=wall)
+    b.add_triangles(meshgen.quad_mesh((-4, -1, 4), (4, -1, 4), (-4, 4, 4),
+                                      (4, 4, 4)), mat_id=wall)
+    v, n, uv = meshgen.sphere_mesh((0.0, 0.2, 0.0), 1.0, 3)
+    b.add_triangles(v, n, uv, mat_id=b.add_material(white, black, 1.0, 0.5,
+                                                    1.0))
+    b.add_triangles(meshgen.quad_mesh((-2, -1, 2), (2, -1, 2), (-2, 2, 2),
+                                      (2, 2, 2)),
+                    mat_id=b.add_material(white, black, 0.0, 1.0, 1.0))
+    b.add_light((0.0, 3.0, -1.0), (8.0, 8.0, 8.0), 0.3)
+    return b.build(device=dev)
+
+
+def _k1_gate(scene, cam, size, cfg, ro=None, rd=None, photon_map=None):
+    """K1 against the plain staged wave on one wave of ``size``² lanes:
+    lanes within 1e-4 on >= 99.9%, ray counts within 0.05%.  Returns
+    (radiance, (n_closest, n_shadow), tests made)."""
+    ro_w, rd_w, sx, sy = Renderer(scene, cam, cfg, size, size).wave_inputs(0)
+    ro = ro_w if ro is None else ro
+    rd = rd_w if rd is None else rd
+    lane = torch.arange(ro.shape[0], device=ro.device)
+    tests = torch.zeros(2, dtype=torch.int64, device=ro.device)
+    before = _cuda.launches["megakernel"]
+    got, (gc, gs) = radiance_wave_mega(scene, cfg, ro, rd, sx, sy, lane, 0,
+                                       photon_map, tests=tests)
+    assert _cuda.launches["megakernel"] == before + 1
+    want, (wc, ws) = radiance_wave(scene, cfg, ro, rd, sx, sy, 0, photon_map,
+                                   lane_ids=lane, plain=True)
+    assert torch.isfinite(got).all()
+    off = ((got - want).abs().max(-1).values > 1e-4).float().mean()
+    assert off < 0.001
+    assert abs(int(gc) - int(wc)) <= 5e-4 * int(wc)
+    assert abs(int(gs) - int(ws)) <= 5e-4 * int(ws)
+    # the culled walks test no more than every row for every ray
+    t_pad = trace_tables(scene)[0].shape[0]
+    assert int(tests[0]) <= int(gc) * t_pad
+    assert int(tests[1]) <= int(gs) * t_pad
+    return got, (gc, gs), tests
+
+
 @pytest.mark.parametrize("which", ["cornell", "checker"])
 def test_megakernel_matches_plain(dev, scene, which):
     """64x64 lanes, depth 8, no map: lanes within 1e-4 on >= 99.9%, ray
-    counts within 0.05%."""
+    counts within 0.05%; the Cornell table is walked from shared memory."""
     cfg = RenderConfig(min_samples=1, max_samples=1, adaptive=False,
                        max_depth=8)
     if which == "checker":
@@ -113,17 +166,75 @@ def test_megakernel_matches_plain(dev, scene, which):
         cam = Camera(pos=(0.0, 0.5, -4.0), look_at=(0.0, 0.0, 0.0))
     else:
         cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
-    r = Renderer(scene, cam, cfg, 64, 64)
-    ro, rd, sx, sy = r.wave_inputs(0)
-    lane = torch.arange(ro.shape[0], device=dev)
-    got, (gc, gs) = radiance_wave_mega(scene, cfg, ro, rd, sx, sy, lane)
-    want, (wc, ws) = radiance_wave(scene, cfg, ro, rd, sx, sy, 0,
-                                   lane_ids=lane, plain=True)
-    assert torch.isfinite(got).all()
-    off = ((got - want).abs().max(-1).values > 1e-4).float().mean()
-    assert off < 0.001
-    assert abs(int(gc) - int(wc)) <= 5e-4 * int(wc)
-    assert abs(int(gs) - int(ws)) <= 5e-4 * int(ws)
+        assert mega_info(scene)["table_in_smem"] == 1
+    _k1_gate(scene, cam, 64, cfg)
+
+
+def test_megakernel_glass_box_reads_rows_from_device_memory(dev):
+    """The 8,342-triangle glass box (66 chunks, a 540,672-byte table past
+    a block's shared memory): the walk reads its rows through __ldg."""
+    glass = cornell_box(SceneBuilder, meshgen, True, 5).build(device=dev)
+    assert glass.n_tris == 8342
+    info = mega_info(glass)
+    # no spills: the only local memory is the 32-byte buffer of sinf and
+    # cosf's argument reduction for huge angles (the shading's are < 2 pi)
+    assert info["table_in_smem"] == 0 and info["local_bytes"] <= 32
+    cfg = RenderConfig(min_samples=1, max_samples=1, adaptive=False,
+                       max_depth=8)
+    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
+    _, _, tests = _k1_gate(glass, cam, 64, cfg)
+    assert int(tests[0]) > 0 and int(tests[1]) > 0
+
+
+@pytest.mark.parametrize("with_map", [False, True], ids=["no_map", "map"])
+@pytest.mark.parametrize("glass_subdivs", [None, 5], ids=["cornell", "glass"])
+def test_megakernel_refills_ended_paths(dev, glass_subdivs, with_map):
+    """A 320x320 wave, more lanes than the card holds threads at once:
+    threads whose paths end take the next lanes from the queue, so warps
+    carry paths at different depths (their own samples, caustic record
+    slots and outputs), on both branches of the walk."""
+    args = () if glass_subdivs is None else (glass_subdivs,)
+    scn = cornell_box(SceneBuilder, meshgen, True, *args).build(device=dev)
+    cfg = RenderConfig(min_samples=1, max_samples=1, adaptive=False,
+                       max_depth=8, photons=50_000)
+    info = mega_info(scn)
+    assert info["table_in_smem"] == (glass_subdivs is None)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    size = 320
+    assert size * size > info["blocks_per_sm"] * info["threads"] * n_sm
+    pm = None
+    if with_map:
+        pm = build_photon_map(trace_photons(scn, cfg),
+                              scn.world_min.cpu().numpy(),
+                              scn.world_max.cpu().numpy())
+    _k1_gate(scn, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT), size, cfg,
+             photon_map=pm)
+
+
+def test_megakernel_half_opaque(dev):
+    """The stochastic-alpha lottery (opacity 0.5, ior 1) under the cull,
+    on the closest and the shadow walks."""
+    soup = _half_opaque(dev)
+    assert not soup.all_opaque
+    cfg = RenderConfig(min_samples=1, max_samples=1, adaptive=False,
+                       max_depth=6)
+    _k1_gate(soup, Camera(pos=(0.3, 0.8, -5.0), look_at=(0.0, 0.2, 0.0)),
+             64, cfg)
+
+
+def test_megakernel_every_lane_misses(dev, scene):
+    """A wave whose every lane misses at bounce 0 (the rays leave the box
+    from outside it): every path ends at once with the ambient term, and
+    no shadow ray is cast."""
+    cfg = RenderConfig(min_samples=1, max_samples=1, adaptive=False,
+                       max_depth=8, ambient=(0.25, 0.5, 0.75))
+    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
+    ro, rd, _, _ = Renderer(scene, cam, cfg, 64, 64).wave_inputs(0)
+    got, (gc, gs), tests = _k1_gate(scene, cam, 64, cfg, ro=ro, rd=-rd)
+    assert int(gc) == ro.shape[0] and int(gs) == 0
+    assert int(tests[0]) == 0 and int(tests[1]) == 0
+    assert torch.equal(got, torch.tensor([[0.25, 0.5, 0.75]], device=dev)
+                       .expand_as(got))
 
 
 def test_knn_kernel_matches_plain(dev):
@@ -144,6 +255,90 @@ def test_knn_kernel_matches_plain(dev):
     assert close.float().mean() >= 0.999
     with pytest.raises(NotImplementedError):
         sample_photons_tiled(pm, q.requires_grad_(), qd, 32)
+
+
+def _knn_ties_included(pm, q, qd, k):
+    """The kernel's estimate in plain torch: every window photon with
+    d^2 <= the k-th smallest d^2 counts, ties included (the plain
+    ``sample_photons`` takes exactly k)."""
+    cap = int(pm.window_cap)
+    ar = torch.arange(cap, device=q.device)
+    idx_l, ok_l = [], []
+    n_true = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    n_got = torch.zeros_like(n_true)
+    for start, end, dup in _window(pm, _cells(pm, q)):
+        cnt = torch.where(dup, 0, end - start)
+        n_true += cnt
+        n_got += torch.clamp(cnt, max=cap)
+        sl = start[:, None] + ar[None, :]
+        idx_l.append(torch.clamp(sl, 0, pm.capacity - 1))
+        ok_l.append((sl < end[:, None]) & ~dup[:, None])
+    idx, ok = torch.cat(idx_l, 1), torch.cat(ok_l, 1)
+    dp = pm.pos[idx] - q[:, None, :]
+    d2 = (dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1]) \
+        + dp[..., 2] * dp[..., 2]
+    d2 = torch.where(ok & pm.valid[idx], d2, torch.inf)
+    found = torch.isfinite(d2).sum(1)
+    srt = torch.sort(d2, 1).values
+    rank = torch.clamp(found, 1, k) - 1
+    rk2 = torch.gather(srt, 1, rank[:, None])
+    sel = d2 <= rk2
+    w = (pm.dir[idx] * qd[:, None, :]).sum(-1)
+    total = torch.where(sel[..., None], pm.col[idx] * w[..., None], 0.0) \
+        .sum(1)
+    est = total / (torch.pi * torch.clamp(rk2, min=1e-20))
+    rate = torch.where(n_true > 0, n_got / torch.clamp(n_true, min=1), 1.0)
+    est = est / torch.clamp(rate, min=1e-6)[:, None]
+    return torch.where((found > 0)[:, None], est, 0.0)
+
+
+def test_knn_kernel_distance_ties(dev):
+    """Every photon position held by three photons (other directions and
+    colours), so most queries' k-th distance is tied: the kernel counts
+    every tied photon, as the TPU kernels do."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    P = 6000
+    pos = (torch.randn((P, 3), generator=g, device=dev) * 0.3).repeat(3, 1)
+    d = normalize(torch.randn((3 * P, 3), generator=g, device=dev))
+    col = torch.rand((3 * P, 3), generator=g, device=dev)
+    pm = build_photon_map(PhotonBatch(pos, d, col, torch.ones(
+        3 * P, dtype=torch.bool, device=dev)), (-1.5,) * 3, (1.5,) * 3)
+    q = torch.randn((4096, 3), generator=g, device=dev) * 0.4
+    qd = normalize(torch.randn((4096, 3), generator=g, device=dev))
+    got = sample_photons_tiled(pm, q, qd, 32)
+    want = _knn_ties_included(pm, q, qd, 32)
+    close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
+    assert close.float().mean() >= 0.999
+    # the ties matter: the plain estimate (exactly k) differs on many
+    plain = sample_photons(pm, q, qd, 32)
+    assert ((plain - want).abs() > 1e-6 + 2e-4 * want.abs()).any(-1) \
+        .float().mean() > 0.05
+
+
+def test_knn_kernel_windows_past_the_register_store(dev):
+    """Windows of several hundred candidates, past the 32 x GI_KNN_REG a
+    warp keeps in registers, so the bisection and the sum read the rest
+    again from the photon arrays."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    P = 120_000
+    pos = torch.rand((P, 3), generator=g, device=dev) - 0.5
+    pm = build_photon_map(PhotonBatch(
+        pos, normalize(torch.randn((P, 3), generator=g, device=dev)),
+        torch.rand((P, 3), generator=g, device=dev),
+        torch.ones(P, dtype=torch.bool, device=dev)),
+        (-0.5,) * 3, (0.5,) * 3, target_per_cell=24.0, window_cap=256)
+    q = torch.rand((4096, 3), generator=g, device=dev) - 0.5
+    qd = normalize(torch.randn((4096, 3), generator=g, device=dev))
+    cand = torch.zeros(4096, dtype=torch.int64, device=dev)
+    for start, end, dup in _window(pm, _cells(pm, q)):
+        cand += torch.where(dup, 0, torch.clamp(end - start,
+                                                max=pm.window_cap))
+    assert (cand > knn_info()["register_candidates"]).float().mean() > 0.5
+    got = sample_photons_tiled(pm, q, qd, 32)
+    want = sample_photons(pm, q, qd, 32)
+    close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
+    assert close.float().mean() >= 0.999
+    assert knn_info()["local_bytes"] == 0
 
 
 def test_default_build_lands_on_the_card(dev):
