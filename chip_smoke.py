@@ -21,7 +21,27 @@ card at the paths' shapes:
   triangles, on the diffuse bounce and shadow rays from their hits;
 * phase B, high-poly glass: the Cornell box with a 131,072-triangle glass
   sphere (131,222 triangles), a 250,000-slot photon pass, the map, and a
-  256x256, 4 spp, depth 8 render with it (K4 closest and any hit, K3).
+  256x256, 4 spp, depth 8 render with it (K4 closest and any hit, K3);
+* phase C, analytic Cornell: the box with analytic glass and mirror
+  spheres, an analytic cone and an image-textured floor (22 triangles), a
+  750,000-slot photon pass (K2 and the sphere and cone passes), the map,
+  and a 512x512 adaptive render (8 to 32 spp, noise 0.0015, depth 8, k 32)
+  whose waves trace only the 16x16 blocks still active (the staged wave on
+  K2, K3); the same render on full-frame waves must give the same image
+  and samples with more rays;
+* phase D, fog Cornell: scripts/validate_golden.py's cornell_fog (the
+  mesh box, heightFog 4 3.4 0 16 8 8.4 1 1 1 .05 .5 2, ambient 0.35),
+  512x512, 4 spp, depth 6, no photons (the staged wave on K2 with the fog
+  march), which must differ visibly from the fog-free render; one
+  profiled render gives the march's share of the device time;
+* the CLI: ``cli.main(["render", ...])`` on a scene with spheres, a cone
+  and fog, 128x128 with 20,000 photon slots and a checkpoint, then again
+  stopped after its first wave and resumed from that checkpoint: the PNG
+  must read back at 128x128x3 and the resumed image equal the first.
+
+K1 is also held, on adaptive renders of the mesh Cornell box (8 to 32 spp,
+with and without the map), to the same render with block compaction off:
+its waves then carry the lane ids of the blocks still active, with gaps.
 
 K2 and K4 (the two launches of ``csrc/walk.cuh``) are also timed on the
 traces of one round of their photon passes, and every time of K2, K4 and
@@ -58,11 +78,10 @@ import gc
 import json
 import os
 import statistics
-import struct
 import subprocess
 import sys
+import tempfile
 import time
-import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
@@ -97,6 +116,34 @@ K3_DENSE_WINDOW = 512      # dense-focus queries: windows past this many
 # times, whose feature table (66 chunks) does not fit shared memory
 K1_GLASS_SUBDIVS, K1_GLASS_TRIS, K1_GLASS_PHOTONS = 5, 8342, 50_000
 MIN_STORED = 0.98          # of the photon slots
+# adaptive renders (phase C and K1's block-adaptive gate): the
+# RenderConfig defaults, which are the reference's (util.h:24-26)
+ADAPT_MIN, ADAPT_MAX, ADAPT_THRESH = 8, 32, 0.0015
+# phase D: scripts/validate_golden.py's cornell_fog scene and budget
+FOG = dict(pos=(4.0, 3.4, 0.0), size=(16.0, 8.0, 8.4), col=(1.0, 1.0, 1.0),
+           density=0.05, scatter=0.5, noise_scale=2)
+FOG_AMBIENT = (0.35, 0.35, 0.35)
+FOG_SPP, FOG_DEPTH = 4, 6
+FOG_MIN_DIFF = 1e-3        # mean |fog - no fog| (tests/test_atmosphere.py)
+CLI_SIZE, CLI_PHOTONS = 128, 20_000
+# the CLI's scene: every new directive but imTex (the card host has no
+# Pillow); 2 to 4 samples, so the checkpoint after wave 0 is mid-render
+CLI_SCENE = """colorTex 0.9 0.9 0.9
+colorTex 0 0 0
+colorTex 0.8 0.3 0.2
+mat 0 1 1 1
+mat 2 1 1 1
+mat 0 1 0 0 1.5
+box 0 -3 0 8 0.2 8 0 0 0 0
+box 0 0 4 8 8 0.2 0 0 0 0
+sphere -1 -1.6 0 1.2 2
+cone 1.6 -2.9 0.8 1.5708 0 0 0.7 1.6 1
+heightFog 0 0 0 8 6 8 0.9 0.9 0.9 0.2 1 2
+light 0 3 -1 8 8 8 0.3
+samples 2 4 0.01
+photons 20000
+camera 0 0 -9 0 -1 0
+"""
 
 # the card's peak rates for the bound (H100 SXM datasheet)
 PEAK_FP32 = 67e12          # FP32 operations per second outside tensor cores
@@ -124,21 +171,6 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def write_png(path, img_u8):
-    """(H, W, 3) uint8 numpy array -> an 8-bit RGB PNG."""
-    h, w, _ = img_u8.shape
-    raw = b"".join(b"\x00" + img_u8[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 class Phase:
@@ -196,13 +228,16 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def profile(name, fn, top=8, host=True):
+def profile(name, fn, top=8, host=True, span=None):
     """Device ms per kernel over one call of ``fn`` (torch.profiler) and
     the share of its wall the device was busy (one stream: the kernels do
     not overlap).  ``host=False`` traces the device alone (for long runs
     of many small operations, such as a photon pass).  The device events
     are summed from the profiler's raw records, which is fast where
-    ``key_averages`` would take minutes over a photon pass's events."""
+    ``key_averages`` would take minutes over a photon pass's events.
+    ``span``: the name of a ``record_function`` range; the device time of
+    the kernels launched inside it is logged too.  Returns (busy device
+    ms, the span's device ms or None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as trace
     torch.cuda.synchronize()
@@ -215,18 +250,40 @@ def profile(name, fn, top=8, host=True):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
+    events = list(prof.profiler.kineto_results.events())
+    cpu = torch.autograd.DeviceType.CPU
+    ranges, op_start = [], {}
+    if span is not None:
+        ranges = sorted((e.start_ns(), e.end_ns()) for e in events
+                        if e.device_type() == cpu and e.name() == span)
+        op_start = {e.correlation_id(): e.start_ns() for e in events
+                    if e.device_type() == cpu}
+    in_span = 0.0
+    for e in events:
+        # the device-side copy of a record_function range is no kernel
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation() and e.name() != span):
             # no namespace qualifier, no argument list
             key = e.name().replace("(anonymous namespace)::", "") \
                 .split("(")[0]
-            kernels[key] = kernels.get(key, 0.0) + e.duration_ns() / 1e6
+            ms = e.duration_ns() / 1e6
+            kernels[key] = kernels.get(key, 0.0) + ms
+            # a kernel belongs to the span if the op that launched it
+            # started inside one of the span's ranges
+            t = op_start.get(e.linked_correlation_id())
+            if t is not None and any(a <= t <= b for a, b in ranges):
+                in_span += ms
     busy = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
     log(f"profile {name}: wall ms {wall:.1f} device busy ms {busy:.1f} "
         f"({busy / wall:.4f}); kernels ms "
         + json.dumps({k: round(v, 3) for k, v in ranked}))
-    return kernels
+    if span is None:
+        return busy, None
+    log(f"profile {name}: {span} {len(ranges)} ranges, device ms "
+        f"{in_span:.1f} ({in_span / max(busy, 1e-9):.4f} of the busy device "
+        f"time)")
+    return busy, in_span
 
 
 def hit_gates(name, scene, ro, rd, p_k, p_ref, eps):
@@ -256,11 +313,15 @@ def hit_gates(name, scene, ro, rd, p_k, p_ref, eps):
 
 
 def save_png(renderer, img, name):
-    import torch
+    from gi_raytracer_tpu_torch.io import save_png as write_png
     png = os.path.join(OUT_DIR, name)
-    u8 = (renderer.tonemap(img) * 255.0 + 0.5).to(torch.uint8)
-    write_png(png, u8.cpu().numpy())
+    write_png(png, renderer.tonemap(img))
     log(f"image mean {img.mean().item():.5f} saved {png}")
+
+
+def blocks_never_grow(blocks):
+    """The active blocks of an adaptive render never increase."""
+    return all(a >= b for a, b in zip(blocks, blocks[1:]))
 
 
 def walls_gate(img, size):
@@ -438,7 +499,8 @@ def main(argv) -> int:
     from gi_raytracer_tpu_torch.render.photon_knn import (
         _cells, _window, knn_info, sample_photons_tiled)
     from gi_raytracer_tpu_torch.scene import terrain
-    from gi_raytracer_tpu_torch.scene.cornell import GLASS_SUBDIVS, GLASS_TRIS
+    from gi_raytracer_tpu_torch.scene.cornell import (
+        ANALYTIC_TRIS, GLASS_SUBDIVS, GLASS_TRIS)
 
     rows = {}       # kernel name -> its JSON row
     launches = {k: 0 for k in _cuda.KERNELS}   # summed over the main paths
@@ -777,6 +839,42 @@ def main(argv) -> int:
             replaces="gi_raytracer_tpu/render/photon_knn.py:652,696,71",
             max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # ---- K1 on block-compacted waves: the mesh Cornell box, adaptive ----
+    a_cfg = cfg.replace(min_samples=ADAPT_MIN, max_samples=ADAPT_MAX,
+                        noise_thresh=ADAPT_THRESH, adaptive=True)
+
+    def adaptive_render(scn, c, pmap, compaction):
+        r = Renderer(scn, cam, c, WIDTH, HEIGHT, photon_map=pmap,
+                     block_compaction=compaction)
+        (img, st), secs = timed(lambda: r.render(return_state=True))
+        return r, img, st, secs
+
+    with Phase("K1 block-adaptive"):
+        for pmap in (None, pm):
+            label = "map" if pmap is not None else "no map"
+            r, img, st, secs = drive(
+                f"K1 block-adaptive Cornell {label}",
+                lambda: adaptive_render(scene, a_cfg, pmap, True),
+                need=("megakernel",) + (("knn",) if pmap is not None else ()),
+                absent=("stream", "intersect"))
+            _, img_f, st_f, secs_f = adaptive_render(scene, a_cfg, pmap,
+                                                     False)
+            off = ((img - img_f).abs().max(-1).values > K1_LANE_TOL) \
+                .float().mean().item()
+            log(f"K1 block-adaptive Cornell {WIDTH}x{HEIGHT} "
+                f"{ADAPT_MIN}-{ADAPT_MAX} spp {label}: waves {st['wave']}, "
+                f"blocks per wave {r.wave_blocks}; rays compacted "
+                f"{float(st['rays']):.0f} in {secs:.3f} s, full frame "
+                f"{float(st_f['rays']):.0f} in {secs_f:.3f} s; pixels off "
+                f">{K1_LANE_TOL} {off:.6f}")
+            require(torch.isfinite(img).all(), "finite adaptive image")
+            require(off < K1_MAX_OFF, ("K1 block-adaptive", label, off))
+            require(torch.equal(st["samps"], st_f["samps"]), "samps equal")
+            require(torch.equal(st["active"], st_f["active"]), "active equal")
+            require(st["wave"] == st_f["wave"], (st["wave"], st_f["wave"]))
+            require(blocks_never_grow(r.wave_blocks), r.wave_blocks)
+            require(float(st["rays"]) < float(st_f["rays"]), "fewer rays")
     del pm
 
     with Phase("K3 knn vs plain, dense focus"):
@@ -1062,6 +1160,175 @@ def main(argv) -> int:
     with Phase("glass photon pass profile"):
         profile(f"glass {glass.n_tris} photon pass",
                 lambda: trace_photons(glass, glass_cfg), host=False)
+
+    del glass, r, img
+
+    # ---- 7. phase C: the analytic Cornell box, the map, adaptive --------
+    c_cfg = RenderConfig(min_samples=ADAPT_MIN, max_samples=ADAPT_MAX,
+                         noise_thresh=ADAPT_THRESH, adaptive=True,
+                         max_depth=DEPTH, photons=PHOTONS, knn_k=KNN_K,
+                         seed=SEED)
+    with Phase("analytic build"):
+        an = cornell_box(SceneBuilder, meshgen, True, analytic=True,
+                         seed=SEED).build(device=dev)
+        require((an.n_tris, an.n_spheres, an.n_cones) == (ANALYTIC_TRIS, 2, 1),
+                (an.n_tris, an.n_spheres, an.n_cones))
+        require(an.has_image_tex and not uses_stream(an)
+                and mega_why_not(an, c_cfg), "the staged wave on K2")
+
+    def analytic_path():
+        batch, t_ph = timed(lambda: trace_photons(an, c_cfg))
+        stored = int(batch.stored.sum())
+        apm, t_map = timed(lambda: build_photon_map(
+            batch, an.world_min.cpu().numpy(), an.world_max.cpu().numpy()))
+        log(f"phase C photons stored {stored} of {PHOTONS} "
+            f"({stored / PHOTONS:.5f}) in {t_ph:.3f} s: "
+            f"{PHOTONS / t_ph:.1f} photon slots/s; map {apm.dims} "
+            f"window_cap {apm.window_cap} built in {t_map:.3f} s")
+        require(stored >= MIN_STORED * PHOTONS, stored)
+        r = Renderer(an, cam, c_cfg, WIDTH, HEIGHT, photon_map=apm)
+        require(r.block_adaptive, "block-adaptive waves")
+        (img, st), secs = timed(lambda: r.render(return_state=True))
+        rays = float(st["rays"])
+        log(f"phase C render {WIDTH}x{HEIGHT} adaptive {ADAPT_MIN}-"
+            f"{ADAPT_MAX} spp (noise {ADAPT_THRESH}) depth {DEPTH} with the "
+            f"map: waves {st['wave']}, active blocks per wave "
+            f"{r.wave_blocks}; {rays:.0f} rays in {secs:.3f} s, "
+            f"{rays / secs:.1f} rays/s")
+        return apm, r, img, st
+
+    with Phase("phase C: analytic Cornell"):
+        apm, r, img, st = drive("phase C", analytic_path,
+                                need=("intersect", "knn"),
+                                absent=("megakernel", "stream"))
+        require(img.shape == (HEIGHT, WIDTH, 3), img.shape)
+        require(torch.isfinite(img).all(), "finite analytic image")
+        require(blocks_never_grow(r.wave_blocks), r.wave_blocks)
+        walls_gate(img, WIDTH)
+        save_png(r, img, "analytic_512.png")
+    with Phase("phase C full-frame waves"):
+        _, img_f, st_f, secs_f = adaptive_render(an, c_cfg, apm, False)
+        off = ((img - img_f).abs().max(-1).values > K1_LANE_TOL) \
+            .float().mean().item()
+        log(f"phase C the same waves on the full frame: "
+            f"{float(st_f['rays']):.0f} rays in {secs_f:.3f} s (compacted "
+            f"{float(st['rays']):.0f}); pixels off >{K1_LANE_TOL} {off:.6f}")
+        require(float(st["rays"]) < float(st_f["rays"]),
+                "compacted waves trace fewer rays")
+        require(torch.equal(st["samps"], st_f["samps"])
+                and torch.equal(st["active"], st_f["active"]),
+                "the same samples and active pixels")
+        require(off < K1_MAX_OFF, ("phase C full frame", off))
+        del img_f, st_f
+    profile("phase C render", r.render)
+    del an, apm, r, img, st
+
+    # ---- 8. phase D: the fog Cornell box --------------------------------
+    from gi_raytracer_tpu_torch.render import atmosphere
+    d_cfg = RenderConfig(min_samples=FOG_SPP, max_samples=FOG_SPP,
+                         adaptive=False, max_depth=FOG_DEPTH, photons=0,
+                         ambient=FOG_AMBIENT, seed=SEED)
+    with Phase("fog build"):
+        fb = cornell_box(SceneBuilder, meshgen, True)
+        fb.add_height_fog(FOG["pos"], FOG["size"], FOG["col"],
+                          FOG["density"], FOG["scatter"], FOG["noise_scale"],
+                          seed=SEED)
+        fog = fb.build(device=dev)
+        require(fog.n_tris == FULL_TRIS and fog.has_fog
+                and mega_why_not(fog, d_cfg) == ["fog"], "fog: no K1")
+        clear = cornell_box(SceneBuilder, meshgen, True).build(device=dev)
+
+    def fog_path():
+        r = Renderer(fog, cam, d_cfg, WIDTH, HEIGHT)
+        (img, st), secs = timed(lambda: r.render(return_state=True))
+        rays = float(st["rays"])
+        log(f"phase D fog render {WIDTH}x{HEIGHT} {FOG_SPP} spp depth "
+            f"{FOG_DEPTH}: {rays:.0f} rays in {secs:.3f} s, "
+            f"{rays / secs:.1f} rays/s")
+        return r, img
+
+    with Phase("phase D: fog Cornell"):
+        r, img = drive("phase D", fog_path, need=("intersect",),
+                       absent=("megakernel", "stream", "knn"))
+        require(torch.isfinite(img).all(), "finite fog image")
+        img_c = Renderer(clear, cam, d_cfg, WIDTH, HEIGHT).render()
+        diff = (img - img_c).abs().mean().item()
+        log(f"phase D mean |fog - no fog| {diff:.5f}")
+        require(diff > FOG_MIN_DIFF, ("fog visible", diff))
+        save_png(r, img, "fog_512.png")
+    # the march's share: its kernels' device time in the profile, and the
+    # stream time between events around each march
+    march = atmosphere._march
+    marks = []
+
+    def timed_march(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.record_function("fog_march"):
+            e0.record()
+            out = march(*a, **kw)
+            e1.record()
+        marks.append((e0, e1))
+        return out
+
+    atmosphere._march = timed_march
+    try:
+        busy, march_ms = profile("phase D fog render", r.render,
+                                 span="fog_march")
+    finally:
+        atmosphere._march = march
+    torch.cuda.synchronize()
+    stream_ms = sum(a.elapsed_time(b) for a, b in marks)
+    log(f"phase D fog march: {len(marks)} marches, device ms {march_ms:.1f} "
+        f"of {busy:.1f} busy ({march_ms / busy:.4f}); stream ms between "
+        f"the marches' events {stream_ms:.1f}")
+    del fog, clear, r, img, img_c
+
+    # ---- 9. the CLI on the card: render, checkpoint, resume ---------------
+    from gi_raytracer_tpu_torch import cli
+    from gi_raytracer_tpu_torch import io as port_io
+    with tempfile.TemporaryDirectory() as tmp:
+        scn = os.path.join(tmp, "scene.scn")
+        with open(scn, "w") as f:
+            f.write(CLI_SCENE)
+        png, ck = os.path.join(tmp, "full.png"), os.path.join(tmp, "ck.npz")
+        args = ["render", scn, "-W", str(CLI_SIZE), "-H", str(CLI_SIZE),
+                "--photons", str(CLI_PHOTONS), "--checkpoint", ck]
+
+        class Interrupted(Exception):
+            pass
+
+        def cli_path():
+            cli.main(args + ["-o", png])
+            save = port_io.save_checkpoint
+
+            def save_then_stop(*a, **kw):      # interrupted after wave 0
+                save(*a, **kw)
+                raise Interrupted
+
+            port_io.save_checkpoint = save_then_stop
+            try:
+                cli.main(args + ["-o", os.path.join(tmp, "never.png")])
+            except Interrupted:
+                pass
+            finally:
+                port_io.save_checkpoint = save
+            require(int(port_io.load_checkpoint(ck)["wave"]) == 1,
+                    "a checkpoint after the first wave")
+            cli.main(args + ["-o", os.path.join(tmp, "resumed.png"),
+                             "--resume"])
+
+        with Phase("CLI render and resume"):
+            drive("CLI render", cli_path, need=("intersect", "knn"),
+                  absent=("megakernel", "stream"))
+            full = port_io.load_png(png)
+            resumed = port_io.load_png(os.path.join(tmp, "resumed.png"))
+            log(f"CLI png {full.shape} mean {full.mean():.5f}; resumed "
+                f"equal {bool((full == resumed).all())}")
+            require(full.shape == (CLI_SIZE, CLI_SIZE, 3), full.shape)
+            require(full.max() > 0.05, "CLI image not black")
+            require((full == resumed).all(), "resumed render equals the "
+                    "uninterrupted one")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -8,7 +8,9 @@ mirrors its module names so each counterpart is easy to find:
   ops/        intersection (plain torch + CUDA trace kernel) and the
               bounce megakernel
   render/     camera, shading, staged integrator + Renderer, photon pass,
-              kNN caustic estimate (plain torch + CUDA kernel)
+              kNN caustic estimate (plain torch + CUDA kernel), height fog
+  io/         PNG output (standard library) and render checkpoints
+  cli.py      ``python -m gi_raytracer_tpu_torch.cli render scene.scn``
   csrc/       CUDA C++ sources for sm_90a, built by nvcc at first use
   convert.py  carries scenes, photon batches/maps and configs across from
               numpy arrays (used by the parity tests)

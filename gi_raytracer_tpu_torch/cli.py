@@ -1,0 +1,149 @@
+"""Command-line interface: the ``render`` subcommand.
+
+Counterpart of ``gi_raytracer_tpu.cli render``, with the same flags and
+output lines, plus ``--device`` (the card by default; ``--device cpu``
+runs every kernel's plain version):
+
+  python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png
+  python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png \\
+      -W 128 -H 128 --photons 20000 --checkpoint ck.npz --resume
+
+``--checkpoint`` saves the accumulation state after every wave (atomic
+npz with a meta record of resolution, seed, sampling config and the scene
+file's hash); ``--resume`` continues from it and refuses one whose record
+differs.  ``--preview`` writes the tonemapped image after every wave.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _build(args):
+    from .render import Camera
+    from .scene.scn import load_scene
+
+    t0 = time.time()
+    ls = load_scene(args.scene, device=args.device)
+    cfg = ls.config
+    if args.spp:
+        cfg = cfg.replace(min_samples=args.spp, max_samples=args.spp)
+    if args.max_depth:
+        cfg = cfg.replace(max_depth=args.max_depth)
+    if args.photons is not None:
+        cfg = cfg.replace(photons=args.photons)
+    cam = Camera(pos=ls.camera_pos, look_at=ls.camera_look_at)
+    print(f"[scene] {ls.scene.n_tris} tris, {ls.scene.n_spheres} spheres, "
+          f"{ls.scene.lights.count} lights ({time.time() - t0:.2f}s)")
+    return ls, cfg, cam
+
+
+def _photon_map(ls, cfg):
+    from .render.photon import build_photon_map, trace_photons
+
+    if cfg.photons <= 0 or ls.scene.lights.count == 0:
+        return None
+    t0 = time.time()
+    batch = trace_photons(ls.scene, cfg)
+    stored = int(batch.stored.sum())
+    pm = build_photon_map(batch, ls.scene.world_min.cpu().numpy(),
+                          ls.scene.world_max.cpu().numpy())
+    print(f"[photons] {stored}/{batch.stored.shape[0]} stored "
+          f"({time.time() - t0:.2f}s)")
+    return pm if stored else None
+
+
+def cmd_render(args):
+    from .io import load_checkpoint, save_checkpoint, save_png
+    from .render.integrator import Renderer
+
+    ls, cfg, cam = _build(args)
+    pm = _photon_map(ls, cfg) if not args.no_photons else None
+    r = Renderer(ls.scene, cam, cfg, args.width, args.height, photon_map=pm)
+
+    with open(args.scene, "rb") as f:
+        scene_hash = hashlib.sha1(f.read()).hexdigest()[:16]
+    meta = {"width": args.width, "height": args.height, "seed": cfg.seed,
+            "min_samples": cfg.min_samples, "max_samples": cfg.max_samples,
+            "max_depth": cfg.max_depth, "scene_sha1": scene_hash}
+
+    state = None
+    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
+        raw = load_checkpoint(args.checkpoint, expect_meta=meta)
+        raw.pop("meta", None)
+        state = {k: torch.as_tensor(v, device=r.device)
+                 for k, v in raw.items()}
+        state["wave"] = int(raw["wave"])
+        print(f"[resume] wave {state['wave']} from {args.checkpoint}")
+
+    def on_wave(st, s):
+        # progressive preview and crash-safe accumulation
+        if args.preview:
+            save_png(args.preview, r.tonemap(st["mean"]))
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, meta=meta, **{
+                k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                for k, v in st.items()})
+        if args.verbose:
+            print(f"[wave {s}] active {int(st['active'].sum())}")
+
+    hook = on_wave if (args.preview or args.checkpoint) else None
+    t0 = time.time()
+    img, st = r.render(verbose=args.verbose, on_wave=hook, state=state,
+                       return_state=True)
+    out = r.tonemap(img)
+    _sync(r.device)
+    dt = time.time() - t0
+    rays = float(st["rays"])
+    if rays > 0:
+        print(f"[render] {dt:.2f}s — {rays:.3g} rays traced "
+              f"({rays / dt / 1e6:.2f} Mrays/s honest)")
+    else:
+        paths = args.width * args.height * cfg.max_samples
+        print(f"[render] {dt:.2f}s ({paths / dt / 1e6:.2f} Mpaths/s "
+              f"upper bound)")
+    save_png(args.output, out)
+    print(f"[out] {args.output}")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="gi_raytracer_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("render")
+    sp.add_argument("scene")
+    sp.add_argument("-o", "--output", default="render.png")
+    sp.add_argument("-W", "--width", type=int, default=512)
+    sp.add_argument("-H", "--height", type=int, default=512)
+    sp.add_argument("--spp", type=int, default=0,
+                    help="fixed samples/pixel (0 = scene adaptive)")
+    sp.add_argument("--max-depth", type=int, default=0)
+    sp.add_argument("--photons", type=int, default=None)
+    sp.add_argument("--no-photons", action="store_true")
+    sp.add_argument("--preview", default=None, metavar="PNG",
+                    help="write a tonemapped preview after every wave")
+    sp.add_argument("--checkpoint", default=None, metavar="NPZ",
+                    help="save accumulation state after every wave")
+    sp.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint if it exists")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions)")
+    sp.add_argument("-v", "--verbose", action="store_true")
+    sp.set_defaults(fn=cmd_render)
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,6 +4,7 @@ The parity tests turn a JAX ``Scene``/``PhotonBatch``/``PhotonMap`` into
 numpy arrays (plus its static fields) and feed them here, so both packages
 compute on identical triangle order and identical photons.  Array keys are
 the port's field paths: ``"tris.v0"``, ``"lights.pos"``, ``"world_min"``...
+``cones.*`` and ``fog.*`` keys are present only when the scene has them.
 Like every entry point of the port, they put their tensors on the card
 unless the caller passes ``device="cpu"``, and raise when there is none.
 """
@@ -34,8 +35,7 @@ def _tensor(x, device, float_dtype=torch.float32):
 def scene_from_arrays(arrays: dict, *, all_opaque: bool,
                       has_image_tex: bool = False, leaf_size: int = 4,
                       device="cuda", dtype=torch.float32) -> T.Scene:
-    """A port ``Scene`` from ``{"tris.v0": ..., ...}`` numpy arrays.
-    Spheres must be empty; cones and fog are not carried (``None``)."""
+    """A port ``Scene`` from ``{"tris.v0": ..., ...}`` numpy arrays."""
     dev = resolve_device(device)
 
     def group(prefix, cls, **extra):
@@ -44,30 +44,32 @@ def scene_from_arrays(arrays: dict, *, all_opaque: bool,
         kw.update(extra)
         return cls(**kw)
 
-    scene = T.Scene(
+    def optional(prefix, cls):
+        first = dataclasses.fields(cls)[0].name
+        return group(prefix, cls) if f"{prefix}.{first}" in arrays else None
+
+    return T.Scene(
         tris=group("tris", T.Triangles),
         spheres=group("spheres", T.Spheres),
-        cones=None,
+        cones=optional("cones", T.Cones),
         lights=group("lights", T.Lights),
         materials=group("materials", T.Materials),
         textures=group("textures", T.Textures),
         bvh=group("bvh", T.BVH, leaf_size=leaf_size),
-        fog=None,
+        fog=optional("fog", T.Fog),
         world_min=_tensor(arrays["world_min"], dev, dtype),
         world_max=_tensor(arrays["world_max"], dev, dtype),
         all_opaque=bool(all_opaque), has_image_tex=bool(has_image_tex))
-    if scene.n_spheres:
-        raise NotImplementedError("analytic spheres are not ported yet")
-    return scene
 
 
 def scene_to_arrays(scene) -> dict:
     """Inverse of :func:`scene_from_arrays` for any object with the same
     field names (a port Scene, or a JAX Scene of numpy arrays)."""
     out = {}
-    for group in ("tris", "spheres", "lights", "materials", "textures",
-                  "bvh"):
+    for group in _FIELDS:
         obj = getattr(scene, group)
+        if obj is None:             # no cones, no fog
+            continue
         for name in _FIELDS[group]:
             out[f"{group}.{name}"] = np.asarray(getattr(obj, name))
     out["world_min"] = np.asarray(scene.world_min)
@@ -78,6 +80,8 @@ def scene_to_arrays(scene) -> dict:
 _FIELDS = {
     "tris": [f.name for f in dataclasses.fields(T.Triangles)],
     "spheres": [f.name for f in dataclasses.fields(T.Spheres)],
+    "cones": [f.name for f in dataclasses.fields(T.Cones)],
+    "fog": [f.name for f in dataclasses.fields(T.Fog)],
     "lights": [f.name for f in dataclasses.fields(T.Lights)],
     "materials": [f.name for f in dataclasses.fields(T.Materials)],
     "textures": [f.name for f in dataclasses.fields(T.Textures)],

@@ -10,14 +10,21 @@ Counterpart of ``gi_raytracer_tpu.render.integrator``:
   does.
 * ``dispatch_wave`` sends eligible scenes to the megakernel
   (``cuda_megakernel.radiance_wave_mega``) and the rest to the staged wave.
-* ``Renderer.render`` runs one full-frame wave per sample in a Python loop
-  and folds each into the accumulation state (running mean, EMA variance,
-  per-pixel sample counts).  Rays are traced in 16x16 pixel-block order;
-  wave w, block-ordered position p has lane id w*N + p, so every
-  stochastic stream matches the JAX renderer's.
+* ``Renderer.render`` runs one wave per sample in a Python loop and folds
+  each into the accumulation state (running mean, EMA variance, per-pixel
+  sample counts).  Rays are traced in 16x16 pixel-block order; wave w,
+  block-ordered position p has lane id w*N + p, so every stochastic
+  stream matches the JAX renderer's.  Fixed-spp renders trace the full
+  frame each wave; adaptive renders trace only the 16x16 blocks that still
+  hold an active pixel (``Renderer.block_wave``), all of them as one wave,
+  and count only the lanes they trace.  The JAX renderer groups those
+  blocks into fixed-size dispatches for its static shapes; the lane ids,
+  and so the image and the counters, do not depend on the grouping.
+* In a fog scene every bounce marches the fog after the closest hit
+  (``atmosphere.fog_override``) and every shadow ray through it
+  (``atmosphere.fog_occludes``).
 
-Not ported yet: the 16x16-block adaptive compaction (it changes the ray
-counters, not the image), fog, and PRNG bounce dims past Halton's 256.
+PRNG bounce dims past Halton's 256 (depth > 127) are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from ..ops import _cuda
 from ..ops.intersect import trace_closest_rows, trace_any
 from ..sampling.halton import HaltonSampler, HaltonEnum, MAX_QMC_DIMS
 from ..sampling.rng import Purpose, hash_u01
+from .atmosphere import fog_occludes, fog_override
 from .camera import Camera, primary_rays
 from .geom import normalize, random_unit_vec, PI
 from .shading import build_prim_rows, shade_from_rows, secondary_ray
@@ -51,7 +59,9 @@ class PathState(NamedTuple):
 def _direct_light(scene, cfg: RenderConfig, point, normal, rough, u_light,
                   salt, active=None, ray_id=None, plain=False):
     """One shadow ray per light per bounce toward a uniform sphere point on
-    the light; lights are summed."""
+    the light; lights are summed.  In fog a shadow ray is also occluded
+    where the march scatters before the light (marched on ``active`` lanes
+    only: the others' light is never used)."""
     L = scene.lights.count
     acc = torch.zeros_like(point)
     bias = cfg.shadow_bias
@@ -67,6 +77,11 @@ def _direct_light(scene, cfg: RenderConfig, point, normal, rough, u_light,
         occ = trace_any(scene, so, normalize(ldir), t_lim,
                         salt=(salt + 7919 * (li + 1)) & 0xFFFFFFFF,
                         active=active, ray_id=ray_id, plain=plain)
+        if scene.has_fog:
+            occ = occ | fog_occludes(
+                scene, cfg, so, normalize(ldir), t_lim,
+                (salt + 104729 * (li + 1)) & 0xFFFFFFFF, ray_id=ray_id,
+                active=active)
         to_l = lpos[None, :] - point
         d = torch.clamp(torch.sum(normal * normalize(to_l), -1), min=0.0)
         # masked-safe pow: d == 0 lanes would give 0^e * log(0) = nan in
@@ -135,18 +150,26 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
         sec = secondary_ray(st.rd, sh.normal, sh.color, sh.alpha, sh.rough,
                             sh.ior, sx_all[depth], sy_all[depth], u_op, u_fs,
                             st.contrib)
-        point, normal = sh.point, sec.normal
+        point, normal, out_dir, f, color, contrib, rough, offset_sign = (
+            sh.point, sec.normal, sec.dir, sec.f, sh.color, sec.contrib,
+            sh.rough, sec.offset_sign)
+        if scene.has_fog:
+            (point, normal, out_dir, f, color, contrib, rough,
+             offset_sign) = fog_override(
+                scene, cfg, st.ro, st.rd, hit.t, sx_all[depth],
+                sy_all[depth], salt, point, normal, out_dir, f, color,
+                contrib, rough, offset_sign, ray_id=lane, active=st.alive)
         valid = st.alive & sh.valid
-        i_direct = _direct_light(scene, cfg, point, normal, sh.rough, u_light,
+        i_direct = _direct_light(scene, cfg, point, normal, rough, u_light,
                                  salt, active=valid, ray_id=lane, plain=plain)
         if photon_map is not None and depth <= cfg.caustic_max_depth:
-            caustic = sample_photons_backend(photon_map, point, sec.dir,
+            caustic = sample_photons_backend(photon_map, point, out_dir,
                                              cfg.knn_k, cfg.knn_backend,
                                              plain=plain)
         else:
-            caustic = torch.zeros_like(sh.color)
+            caustic = torch.zeros_like(color)
 
-        q = torch.max(sec.contrib, dim=-1).values
+        q = torch.max(contrib, dim=-1).values
         if depth <= cfg.min_depth:
             survive = torch.ones_like(valid)
             boost = torch.ones_like(q)
@@ -156,15 +179,15 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
 
         lum = st.radiance
         lum = lum + torch.where(valid[:, None],
-                                st.throughput * (sh.color * i_direct), 0.0)
+                                st.throughput * (color * i_direct), 0.0)
         lum = lum + torch.where((valid & survive)[:, None],
                                 st.throughput * (sh.emissive
-                                                 + sh.color * caustic), 0.0)
+                                                 + color * caustic), 0.0)
         lum = lum + torch.where((st.alive & ~sh.valid)[:, None],
                                 st.throughput * ambient[None, :], 0.0)
         st = PathState(
-            point + (sec.offset_sign * cfg.shadow_bias)[:, None] * normal,
-            sec.dir, st.throughput * sec.f * boost[:, None], sec.contrib, lum,
+            point + (offset_sign * cfg.shadow_bias)[:, None] * normal,
+            out_dir, st.throughput * f * boost[:, None], contrib, lum,
             valid & survive, st.n_closest + st.alive.sum(),
             st.n_shadow + L * valid.sum())
     return st.radiance, (st.n_closest, st.n_shadow)
@@ -199,10 +222,14 @@ def dispatch_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt=0,
 
 
 class Renderer:
-    """Frame renderer: one full-frame QMC wave per sample."""
+    """Frame renderer: one QMC wave per sample, the full frame or (adaptive
+    renders) the 16x16 blocks still active.  ``block_compaction=False``
+    traces the full frame on adaptive renders too (the same image, samples
+    and active masks; more rays), for comparisons."""
 
     def __init__(self, scene, camera: Camera, config: RenderConfig,
-                 width: int, height: int, photon_map=None):
+                 width: int, height: int, photon_map=None,
+                 block_compaction: bool = True):
         self.scene = scene
         self.camera = camera
         self.cfg = config
@@ -226,6 +253,11 @@ class Renderer:
         self._offsets_t = torch.as_tensor(
             self.enum.offsets.astype(np.int64).ravel(), device=self.device)
         self._prim_rows = None
+        self.block_adaptive = (block_compaction and config.adaptive
+                               and config.max_samples > config.min_samples
+                               and height % B == 0 and width % B == 0)
+        # blocks traced by each wave of the last render (block-adaptive)
+        self.wave_blocks: list = []
 
     @property
     def dtype(self):
@@ -245,16 +277,18 @@ class Renderer:
             if dim_y >= MAX_QMC_DIMS:
                 raise NotImplementedError(
                     "bounces past Halton's 256 dims (depth > 127) draw from "
-                    "a PRNG stream that is not ported yet")
+                    "a threefry PRNG stream the port does not carry")
             sx.append(self.sampler.sample(dim_x, idx_flat, self._index_bits))
             sy.append(self.sampler.sample(dim_y, idx_flat, self._index_bits))
         return torch.stack(sx).to(self.dtype), torch.stack(sy).to(self.dtype)
 
-    def wave_inputs(self, wave: int):
-        """Block-ordered (ro, rd, sx_all, sy_all) of full-frame wave
-        ``wave``."""
+    def wave_inputs(self, wave: int, pos=None):
+        """Block-ordered (ro, rd, sx_all, sy_all) of wave ``wave``: the full
+        frame, or the block-ordered positions ``pos``."""
         idx = ((self._offsets_t + wave * self.enum.increment)
                & 0xFFFFFFFF)[self._perm_t]
+        if pos is not None:
+            idx = idx[pos]
         xr = self.sampler.sample(0, idx, self._index_bits).to(self.dtype)
         yr = self.sampler.sample(1, idx, self._index_bits).to(self.dtype)
         ro, rd = primary_rays(self.camera, self.width, self.height,
@@ -271,6 +305,31 @@ class Renderer:
             lane_base=wave * N, prim_rows=self.prim_rows())
         c = out[self._inv_perm_t].reshape(self.height, self.width, 3)
         return c, n_c + n_s
+
+    def active_blocks(self, active):
+        """Block-major indices of the 16x16 blocks of ``active`` (H, W)
+        that hold an active pixel."""
+        H, W = self.height, self.width
+        act = active.reshape(H // 16, 16, W // 16, 16).any(3).any(1)
+        return torch.nonzero(act.reshape(-1)).squeeze(1)
+
+    def block_wave(self, wave: int, blocks):
+        """One wave over the 16x16 blocks ``blocks`` (block-major indices)
+        as one dispatch.  Block b's lane j has lane id wave*N + b*256 + j,
+        as in the full frame.  Returns ((H, W, 3) raster radiance, zero
+        outside those blocks; the ray count of the traced lanes)."""
+        H, W = self.height, self.width
+        N = H * W
+        pos = (blocks[:, None] * 256
+               + torch.arange(256, device=self.device)[None, :]).reshape(-1)
+        ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos)
+        out, (n_c, n_s) = dispatch_wave(
+            self.scene, self.cfg, ro, rd, sx_all, sy_all, 0, self.photon_map,
+            lane_ids=(wave * N + pos) & 0xFFFFFFFF,
+            prim_rows=self.prim_rows())
+        c = torch.zeros((N, 3), dtype=out.dtype, device=self.device)
+        c[pos] = out
+        return c[self._inv_perm_t].reshape(H, W, 3), n_c + n_s
 
     def state0(self):
         """Fresh accumulation state (running mean starts at 0.5)."""
@@ -302,15 +361,31 @@ class Renderer:
                 "active": active, "wave": s + 1, "rays": st["rays"]}
 
     @torch.no_grad()
-    def render(self, state=None, return_state: bool = False):
-        """Multi-wave render -> linear (H, W, 3) mean image."""
+    def render(self, verbose: bool = False, on_wave=None, state=None,
+               return_state: bool = False):
+        """Multi-wave render -> linear (H, W, 3) mean image.
+
+        ``on_wave(state, wave)`` is called after every wave with the whole
+        accumulation state, which can be saved and passed back as
+        ``state=`` to resume the render (the checkpoint hook)."""
         st = state if state is not None else self.state0()
+        self.wave_blocks = []
+        H, W = self.height, self.width
         for s in range(int(st["wave"]), self.cfg.max_samples):
-            c, rays = self.wave_radiance(s)
-            st = self._accumulate(st, c, s)
-            st["rays"] = st["rays"] + rays.to(torch.float32)
             if not bool(st["active"].any()):
                 break
+            if self.block_adaptive:
+                blocks = self.active_blocks(st["active"])
+                c, rays = self.block_wave(s, blocks)
+                self.wave_blocks.append(blocks.numel())
+            else:
+                c, rays = self.wave_radiance(s)
+            st = self._accumulate(st, c, s)
+            st["rays"] = st["rays"] + rays.to(torch.float32)
+            if verbose:
+                print(f"wave {s}: active {int(st['active'].sum())}/{H * W}")
+            if on_wave is not None:
+                on_wave(st, s)
         return (st["mean"], st) if return_state else st["mean"]
 
     def tonemap(self, linear):

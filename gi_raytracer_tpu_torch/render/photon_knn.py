@@ -171,7 +171,7 @@ def _knn_cuda(pm, point, direction, k):
     if point.requires_grad or pm.col.requires_grad or pm.pos.requires_grad:
         raise NotImplementedError(
             "the kNN kernel is forward-only; gradients through the caustic "
-            "estimate are not ported yet")
+            "estimate wait for the kNN backward (ROADMAP A.6)")
     if not 1 <= k <= KMAX:
         raise ValueError(f"knn k={k} outside [1, {KMAX}]")
     R = point.shape[0]

@@ -1,3 +1,3 @@
-from .types import (Scene, Triangles, Spheres, Lights, Materials,  # noqa: F401
-                    Textures, BVH)
+from .types import (Scene, Triangles, Spheres, Cones, Lights,  # noqa: F401
+                    Materials, Textures, Fog, BVH)
 from .build import SceneBuilder  # noqa: F401

@@ -1,24 +1,27 @@
 """Parser for the reference's ``.scn`` scene language (sceneLoader.cpp).
 
-Counterpart of ``gi_raytracer_tpu.scene.scn`` for triangle scenes.
+Counterpart of ``gi_raytracer_tpu.scene.scn``.
 Grammar (whitespace-separated tokens, ``#`` comments):
 
+  imTex <file> <utile> <vtile>
   checkerboardTex <ar> <ag> <ab> <br> <bg> <bb> <tiles>
   colorTex <r> <g> <b>
   mat <diffuse_tex> <emissive_tex> <roughness> <opacity> [<IOR>]
   multiMat <i> <j> ...            (parsed but unused, like the reference)
   mesh <file.obj> <px py pz> <rx ry rz> <mat>
+  sphere <px py pz> <rad> <mat>
+  cone <px py pz> <rx ry rz> <rad> <height> <mat>   (extension)
   box <px py pz> <sx sy sz> <rx ry rz> <mat>
   light <px py pz> <r g b> <rad>
+  heightFog <px py pz> <sx sy sz> <r g b> <density> <scatter> <scale>
   photons <count> [<depth>]
   samples <min> <max> <noise_thresh>
   ambient <r> <g> <b>
   camera <px py pz> <lx ly lz>
 
-``sphere``, ``cone``, ``heightFog`` and ``imTex`` (analytic spheres and
-cones, fog, image textures) are not ported yet (ROADMAP A) and raise
-``NotImplementedError``.  Returns the compiled Scene (on the card unless
-``device="cpu"``) plus the camera and config overrides.
+Returns the compiled Scene (on the card unless ``device="cpu"``) plus the
+camera and config overrides.  ``imTex`` decodes its file with Pillow,
+imported only there.
 """
 
 from __future__ import annotations
@@ -26,19 +29,13 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from ..config import RenderConfig
 from .build import SceneBuilder
 from .meshgen import box_mesh
 from .objio import load_obj
-
-_NOT_PORTED = {
-    "sphere": "analytic spheres (ROADMAP A.2)",
-    "cone": "analytic cones (ROADMAP A.2)",
-    "heightFog": "fog (ROADMAP A.4)",
-    "imTex": "image textures (ROADMAP A.5)",
-}
 
 
 @dataclasses.dataclass
@@ -47,6 +44,18 @@ class LoadedScene:
     config: RenderConfig
     camera_pos: tuple
     camera_look_at: tuple
+
+
+def _load_image_rgba(path: str) -> tuple[np.ndarray, bool]:
+    """Image file -> (H, W, 4) linear-space float RGBA + has_alpha flag
+    (de-gamma 2.2 once here, not per fetch)."""
+    from PIL import Image
+
+    im = Image.open(path)
+    has_alpha = im.mode in ("RGBA", "LA", "PA")
+    arr = np.asarray(im.convert("RGBA"), np.float32) / 255.0
+    arr[..., :3] = arr[..., :3] ** 2.2
+    return arr, has_alpha
 
 
 def load_scene(path: str, base_config: RenderConfig | None = None,
@@ -92,11 +101,11 @@ def load_scene(path: str, base_config: RenderConfig | None = None,
     while i < len(tokens):
         key = tokens[i]
         i += 1
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f".scn keyword {key!r}: {_NOT_PORTED[key]} is not ported "
-                "to gi_raytracer_tpu_torch yet")
-        if key == "checkerboardTex":
+        if key == "imTex":
+            fn, ut, vt = take(3)
+            img, has_alpha = _load_image_rgba(os.path.join(scene_dir, fn))
+            b.add_texture_image(img, (float(ut), float(vt)), has_alpha)
+        elif key == "checkerboardTex":
             v = [float(x) for x in take(7)]
             b.add_texture_checker(int(v[6]), v[0:3], v[3:6])
         elif key == "colorTex":
@@ -118,6 +127,15 @@ def load_scene(path: str, base_config: RenderConfig | None = None,
             tv, tn, tuv = load_obj(p, tuple(float(x) for x in v[1:4]),
                                    tuple(float(x) for x in v[4:7]))
             b.add_triangles(tv, tn, tuv, int(v[7]))
+        elif key == "sphere":
+            v = take(5)
+            b.add_sphere(tuple(float(x) for x in v[0:3]), float(v[3]),
+                         int(v[4]))
+        elif key == "cone":
+            v = take(9)
+            b.add_cone(tuple(float(x) for x in v[0:3]),
+                       tuple(float(x) for x in v[3:6]),
+                       float(v[6]), float(v[7]), int(v[8]))
         elif key == "box":
             v = take(10)
             tris = box_mesh([float(x) for x in v[0:3]],
@@ -127,6 +145,10 @@ def load_scene(path: str, base_config: RenderConfig | None = None,
         elif key == "light":
             v = [float(x) for x in take(7)]
             b.add_light(v[0:3], v[3:6], v[6])
+        elif key == "heightFog":
+            v = [float(x) for x in take(12)]
+            b.add_height_fog(v[0:3], v[3:6], v[6:9], v[9], v[10], v[11],
+                             seed=cfg.seed)
         elif key == "photons":
             v = take_nums(2)
             overrides["photons"] = int(v[0])

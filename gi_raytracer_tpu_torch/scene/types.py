@@ -1,9 +1,7 @@
 """Flat SoA scene representation as dataclasses of torch tensors.
 
 Counterpart of ``gi_raytracer_tpu.scene.types``: the same containers and
-field names, with plain dataclasses in place of ``flax.struct``.  Analytic
-spheres and cones, fog and image textures are not on the port's path yet:
-``Spheres`` is always empty, ``cones`` and ``fog`` are ``None``.
+field names, with plain dataclasses in place of ``flax.struct``.
 """
 
 from __future__ import annotations
@@ -63,6 +61,22 @@ class Spheres:
 
 
 @dataclasses.dataclass
+class Cones:
+    """Finite cones: apex on the local +z axis at ``height``, base disk of
+    radius ``rad`` at z=0; ``w2l`` rotates world directions into the local
+    frame (rays are moved into object space, not the cone)."""
+    pos: torch.Tensor      # (C, 3) base center (world)
+    rad: torch.Tensor      # (C,)
+    height: torch.Tensor   # (C,)
+    w2l: torch.Tensor      # (C, 3, 3) world->local rotation
+    mat_id: torch.Tensor   # (C,) int32
+
+    @property
+    def count(self) -> int:
+        return self.pos.shape[0]
+
+
+@dataclasses.dataclass
 class Lights:
     pos: torch.Tensor      # (L, 3)
     col: torch.Tensor      # (L, 3)
@@ -98,6 +112,18 @@ class Textures:
 
 
 @dataclasses.dataclass
+class Fog:
+    """Height fog: density ``density * noise(p)^7 * ((ymax - p.y)/size_y)^2``
+    with ``noise`` trilinear in a uniform random grid."""
+    bbox_min: torch.Tensor   # (3,)
+    bbox_max: torch.Tensor   # (3,)
+    color: torch.Tensor      # (3,)
+    density: torch.Tensor    # () scalar
+    scatter: torch.Tensor    # () scalar
+    grid: torch.Tensor       # (nx, ny, nz) noise values in [0, 1)
+
+
+@dataclasses.dataclass
 class BVH:
     node_min: torch.Tensor   # (N, 3)
     node_max: torch.Tensor
@@ -116,12 +142,12 @@ class BVH:
 class Scene:
     tris: Triangles
     spheres: Spheres
-    cones: object            # always None in the port (not on its path)
+    cones: Cones | None
     lights: Lights
     materials: Materials
     textures: Textures
     bvh: BVH
-    fog: object = None       # always None in the port (not on its path)
+    fog: Fog | None = None
     world_min: torch.Tensor = None
     world_max: torch.Tensor = None
     all_opaque: bool = False

@@ -1,0 +1,121 @@
+"""The port's ``.scn`` directives and ``cli render``: a scene with every
+directive loads to the JAX loader's arrays; ``cli render --device cpu``
+writes a PNG that Pillow and ``io.load_png`` read back equal; a render
+resumed from a checkpoint taken after its first wave equals the
+uninterrupted render; a checkpoint whose meta record differs is
+refused."""
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from gi_raytracer_tpu.config import RenderConfig as JaxConfig
+from gi_raytracer_tpu.scene.scn import load_scene as jax_load_scene
+from gi_raytracer_tpu_torch import cli
+from gi_raytracer_tpu_torch import io as tio
+from gi_raytracer_tpu_torch.config import RenderConfig
+from gi_raytracer_tpu_torch.scene.scn import load_scene
+
+from _torch_parity import assert_scene_arrays_equal
+
+SCN = """# every directive the port reads
+imTex tex.png 2 3
+colorTex 0.9 0.9 0.9
+colorTex 0 0 0
+colorTex 0.8 0.3 0.2
+checkerboardTex 0.9 0.9 0.9 0.1 0.1 0.1 4
+mat 0 1 1 1
+mat 2 1 1 1
+mat 3 1 0.05 1 1.5
+mat 4 1 0 1
+box 0 -3 0 7 0.2 7 0 0 0 0
+box 2 -2 1 1 1 1 0 0.3 0 1
+sphere -1 -1.5 0 1 2
+sphere 1.5 -1.8 -1 0.6 3
+cone 0.5 -2.8 1.5 1.5708 0 0 0.6 1.5 1
+heightFog 0 -1 0 8 4 8 0.8 0.85 0.9 0.3 1 2
+light 0 3 0 8 8 8 0.3
+samples 2 4 0.05
+photons 3000
+ambient 0.05 0.05 0.05
+camera 0 0 -8 0 -1 0
+"""
+
+
+@pytest.fixture
+def scene_dir(tmp_path):
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, (12, 10, 4), dtype=np.uint8),
+                    "RGBA").save(tmp_path / "tex.png")
+    (tmp_path / "s.scn").write_text(SCN)
+    return tmp_path
+
+
+def test_scn_with_every_directive_loads_like_jax(scene_dir):
+    path = str(scene_dir / "s.scn")
+    want = jax_load_scene(path, JaxConfig(seed=4), dtype=np.float32)
+    got = load_scene(path, RenderConfig(seed=4), device="cpu")
+    s = got.scene
+    assert (s.n_spheres, s.n_cones, s.has_fog, s.has_image_tex) == \
+        (2, 1, True, True)
+    assert s.textures.atlas.shape == (120, 4)
+    assert_scene_arrays_equal(s, want.scene, atol=0)
+    assert s.all_opaque == want.scene.all_opaque
+    for k in ("photons", "min_samples", "max_samples", "noise_thresh",
+              "ambient", "seed"):
+        assert getattr(got.config, k) == getattr(want.config, k), k
+    assert got.camera_pos == want.camera_pos
+
+
+def _render(scene_dir, out, *extra):
+    cli.main(["render", str(scene_dir / "s.scn"), "-o", str(out), "-W", "32",
+              "-H", "32", "--max-depth", "4", "--device", "cpu", *extra])
+
+
+def test_cli_render_writes_a_png(scene_dir, capsys):
+    out = scene_dir / "out.png"
+    _render(scene_dir, out, "--photons", "2000")
+    log = capsys.readouterr().out
+    assert "[scene] 24 tris, 2 spheres, 1 lights" in log
+    assert "[photons] " in log and "Mrays/s honest" in log
+    assert f"[out] {out}" in log
+    img = tio.load_png(str(out))
+    assert img.shape == (32, 32, 3) and img.max() > 0.05
+    pil = np.asarray(Image.open(out).convert("RGB"), np.float32) / 255.0
+    assert np.array_equal(img, pil)
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_cli_resume_equals_uninterrupted(scene_dir, monkeypatch, capsys):
+    """Without the map here (its pass takes most of a CPU render); the
+    card's run of chip_smoke.py resumes a render with one."""
+    full = scene_dir / "full.png"
+    _render(scene_dir, full, "--no-photons")
+    ck = scene_dir / "ck.npz"
+    save = tio.save_checkpoint
+
+    def save_then_stop(*a, **kw):          # interrupted after wave 0
+        save(*a, **kw)
+        raise _Stop
+
+    monkeypatch.setattr(tio, "save_checkpoint", save_then_stop)
+    with pytest.raises(_Stop):
+        _render(scene_dir, scene_dir / "never.png", "--no-photons",
+                "--checkpoint", str(ck))
+    monkeypatch.setattr(tio, "save_checkpoint", save)
+    assert int(tio.load_checkpoint(str(ck))["wave"]) == 1
+    resumed = scene_dir / "resumed.png"
+    _render(scene_dir, resumed, "--no-photons", "--checkpoint", str(ck),
+            "--resume")
+    assert "[resume] wave 1" in capsys.readouterr().out
+    assert np.array_equal(tio.load_png(str(resumed)), tio.load_png(str(full)))
+
+    # another resolution: the meta record no longer matches
+    with pytest.raises(ValueError, match="incompatible"):
+        cli.main(["render", str(scene_dir / "s.scn"), "-o",
+                  str(scene_dir / "x.png"), "-W", "16", "-H", "16",
+                  "--max-depth", "4", "--device", "cpu", "--no-photons",
+                  "--checkpoint", str(ck), "--resume"])

@@ -529,3 +529,95 @@ def test_walk_visits_needed_by_no_ray(dev, kernel, any_hit):
         # planes each, so the near ray enters about half of them: of its
         # 20-odd visits at least 16 were needed by no ray
         assert v_k[1] >= 20 and n_k[1] <= 4 * ci.CHUNK_ROWS
+
+
+def test_megakernel_on_block_compacted_lane_ids(dev, scene):
+    """K1 on a wave of the 16x16 blocks of a 128x128 frame taken with gaps
+    (every third block and the last), whose lane ids are not contiguous,
+    against the plain staged wave on the same lanes; and each lane equals
+    the same lane of the full-frame wave (a lane's path follows its id,
+    not its slot)."""
+    cfg = RenderConfig(min_samples=8, max_samples=32, max_depth=8)
+    r = Renderer(scene, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT), cfg,
+                 128, 128)
+    assert r.block_adaptive
+    wave, N = 3, 128 * 128
+    blocks = torch.cat([torch.arange(0, 63, 3, device=dev),
+                        torch.tensor([63], device=dev)])
+    pos = (blocks[:, None] * 256 + torch.arange(256, device=dev)).reshape(-1)
+    ro, rd, sx, sy = r.wave_inputs(wave, pos)
+    lane = wave * N + pos
+    before = _cuda.launches["megakernel"]
+    got, (gc, gs) = radiance_wave_mega(scene, cfg, ro, rd, sx, sy, lane, 0)
+    assert _cuda.launches["megakernel"] == before + 1
+    want, (wc, ws) = radiance_wave(scene, cfg, ro, rd, sx, sy, 0,
+                                   lane_ids=lane, plain=True)
+    off = ((got - want).abs().max(-1).values > 1e-4).float().mean()
+    assert off < 0.001
+    assert abs(int(gc) - int(wc)) <= 5e-4 * int(wc)
+    assert abs(int(gs) - int(ws)) <= 5e-4 * int(ws)
+    ro_f, rd_f, sx_f, sy_f = r.wave_inputs(wave)
+    full, _ = radiance_wave_mega(scene, cfg, ro_f, rd_f, sx_f, sy_f,
+                                 wave * N + torch.arange(N, device=dev), 0)
+    assert torch.equal(got, full[pos])
+    img, rays = r.block_wave(wave, blocks)
+    assert torch.equal(img.reshape(-1, 3)[r._perm_t[pos]], got)
+    assert int(rays) == int(gc) + int(gs)
+
+
+def test_trace_kernel_with_a_sphere_touching_a_wall(dev):
+    """K2 plus the sphere pass on rays grazing the seam where an analytic
+    sphere sinks 0.05 into the floor (the analytic Cornell box): the
+    kernel's trace against the plain walk's, prim ids equal on >= 99.9%
+    of lanes, and the sphere wins many of them."""
+    an = cornell_box(SceneBuilder, meshgen, True, analytic=True).build(
+        device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    R = 65536
+    # points on the seam circle (the floor y = -4 cuts the glass sphere)
+    ang = torch.rand(R, generator=g, device=dev) * 2 * torch.pi
+    rad = (1.2 ** 2 - 1.15 ** 2) ** 0.5
+    seam = torch.stack([-1.4 + rad * torch.cos(ang),
+                        torch.full_like(ang, -4.0),
+                        -0.6 + rad * torch.sin(ang)], 1)
+    ro = (torch.rand((R, 3), generator=g, device=dev) * 2 - 1) * 3.5
+    tgt = seam + torch.randn((R, 3), generator=g, device=dev) * 0.02
+    rd = normalize(tgt - ro)
+    rid = torch.arange(R, device=dev) * 5 + 7
+    before = _cuda.launches["intersect"]
+    hit_k = trace_closest(an, ro, rd, salt=99, ray_id=rid)
+    assert _cuda.launches["intersect"] == before + 1
+    hit_p = trace_closest(an, ro, rd, salt=99, ray_id=rid, plain=True)
+    sphere = hit_p.prim == an.n_tris
+    assert sphere.float().mean() > 0.2
+    assert (hit_k.prim == hit_p.prim).float().mean() >= 0.999
+    both = (hit_k.prim >= 0) & (hit_p.prim >= 0)
+    assert ((hit_k.t - hit_p.t).abs() <= 1e-5 * hit_p.t.abs())[both] \
+        .float().mean() >= 0.999
+
+
+def test_fog_march_matches_its_step_loop(dev):
+    """The blocked fog march on a 512x512-lane batch of the fog Cornell
+    box against the plain step-by-step loop: scatter flags and t equal."""
+    from gi_raytracer_tpu_torch.render import atmosphere as atm
+
+    b = cornell_box(SceneBuilder, meshgen, True)
+    b.add_height_fog((4.0, 3.4, 0.0), (16.0, 8.0, 8.4), (1.0, 1.0, 1.0),
+                     0.05, 0.5, 2)
+    fog = b.build(device=dev)
+    cfg = RenderConfig(max_depth=6)
+    ro, rd, _, _ = Renderer(fog, Camera(pos=CAMERA_POS,
+                                        look_at=CAMERA_LOOK_AT), cfg,
+                            512, 512).wave_inputs(0)
+    hit = trace_closest(fog, ro, rd)
+    t_cap = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    tmin, tmax, has = atm._fog_bounds(fog, ro, rd, t_cap)
+    lane = 7 * 262144 + torch.arange(ro.shape[0], device=dev)
+    got = atm._march(fog, cfg, ro, rd, tmin, tmax, has, 31337, ray_id=lane)
+    want = atm._march_steps(fog, cfg, ro, rd, tmin, tmax, has, 31337,
+                            ray_id=lane)
+    # the light fog scatters about 1.5% of the primary rays before the
+    # surface (3,800 lanes)
+    assert 1000 < int(want[0].sum()) < ro.shape[0] // 2
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])

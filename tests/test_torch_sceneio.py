@@ -180,10 +180,23 @@ def test_load_scene_matches_jax(gxx, tmp_path):
                                   "heightFog 0 0 0 1 1 1 1 1 1 0.1 0.5 4",
                                   "imTex tex.png 1 1"])
 def test_load_scene_refuses_unported_directives(tmp_path, line):
+    """These directives were refused until the port carried them; each now
+    loads to the JAX loader's arrays (the name is kept from then)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, (6, 5, 4), dtype=np.uint8),
+                    "RGBA").save(tmp_path / "tex.png")
     (tmp_path / "s.scn").write_text("colorTex 1 1 1\nmat 0 0 1 1\n"
+                                    "box 0 0 0 1 1 1 0 0 0 0\n"
                                     + line + "\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        load_scene(str(tmp_path / "s.scn"), device="cpu")
+    path = str(tmp_path / "s.scn")
+    want = jax_load_scene(path, JaxConfig(seed=2), dtype=np.float32)
+    got = load_scene(path, RenderConfig(seed=2), device="cpu")
+    assert_scene_arrays_equal(got.scene, want.scene, atol=0)
+    assert got.scene.has_image_tex == want.scene.has_image_tex
+    assert (got.scene.n_spheres + got.scene.n_cones + got.scene.has_fog
+            + got.scene.has_image_tex) == 1
 
 
 def test_bulk_add_triangles_matches_one_at_a_time():
