@@ -37,7 +37,16 @@ card at the paths' shapes:
 * the CLI: ``cli.main(["render", ...])`` on a scene with spheres, a cone
   and fog, 128x128 with 20,000 photon slots and a checkpoint, then again
   stopped after its first wave and resumed from that checkpoint: the PNG
-  must read back at 128x128x3 and the resumed image equal the first.
+  must read back at 128x128x3 and the resumed image equal the first;
+* the gradient path (``grad_phase``): bench.py's train step, the mesh
+  Cornell box at 256x256, 1 spp, depth 8 on the staged wave (K2 and K3
+  forward, the kNN backward the plain estimator's VJP) with a map of the
+  first 50,000 slots of the main path's photon batch, gradients of
+  mean((c - 0.25)^2) to the photon colours and the light colour, timed
+  (median of 3 after one warm-up) and profiled; the same step with the
+  plain forward, whose loss and gradients must agree; gradcheck's seven
+  families in float64 on the card, each under the JAX test's tolerance;
+  and ``cli grad-check`` on a box with a committed PNG as image texture.
 
 K1 is also held, on adaptive renders of the mesh Cornell box (8 to 32 spp,
 with and without the map), to the same render with block compaction off:
@@ -82,6 +91,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "build", "chip_smoke")
@@ -144,6 +155,36 @@ samples 2 4 0.01
 photons 20000
 camera 0 0 -9 0 -1 0
 """
+
+# the gradient phase: bench.py's train step (bench.py:121-187), the mesh
+# Cornell box at 256x256, 1 spp, depth 8 on the staged wave, a map of the
+# first 50,000 slots of the main path's photon batch, loss mean((c -
+# 0.25)^2), gradients to the photon colours and the light colour
+GRAD_SIZE, GRAD_DEPTH, GRAD_PHOTONS, GRAD_TARGET = 256, 8, 50_000, 0.25
+GRAD_REPEATS = 3           # timed steps after the driven one (the warm-up)
+# the step's gradients with the kernels' forward against the plain
+# forward's: relative L2 difference of each gradient (a lane whose hit or
+# k-th neighbour the kernel and the plain version pick differently, fewer
+# than 0.1% of lanes, feeds other gradients) and of the loss
+GRAD_CMP_RTOL, GRAD_LOSS_RTOL = 1e-2, 1e-3
+# gradcheck's FD gates (tests/test_gradients.py): IOR 5e-2, the rest 1e-2
+GRADCHECK_TOL = {"ior": 5e-2}
+# cli grad-check's scene: a closed box, one wall carrying a committed PNG
+# (written by Pillow, with row filters) as an image texture
+GRAD_CLI_SCENE = """imTex tex.png 2 2
+colorTex 0.9 0.9 0.9
+colorTex 0 0 0
+colorTex 0.8 0.2 0.2
+mat 1 2 1 1
+mat 0 2 1 1
+mat 3 2 0.5 1
+box 0 0 0 8 8 8 0 0 0 0
+box 0 0 3.9 6 6 0.1 0 0 0 1
+box 1 -3 1 1.5 2 1.5 0 0.4 0 2
+light 0 3 0 4 4 4 0.3
+camera 0 0 -3.5 0 0 0
+"""
+GRAD_CLI_TEXTURE = os.path.join("docs", "validation", "cornell_ours.png")
 
 # the card's peak rates for the bound (H100 SXM datasheet)
 PEAK_FP32 = 67e12          # FP32 operations per second outside tensor cores
@@ -371,7 +412,7 @@ def cornell_path(scene, cfg, cam):
     way, then CORNELL_RENDERS renders with the map and as many without
     it, in turns.  Logs each render and the median rays/s of each way,
     gates the photons stored, the images and the walls, and returns the
-    photon map."""
+    photon map and the photon batch it was built from."""
     import torch
     from gi_raytracer_tpu_torch.render import Renderer
     from gi_raytracer_tpu_torch.render.photon import (build_photon_map,
@@ -408,7 +449,191 @@ def cornell_path(scene, cfg, cam):
         f"{statistics.median(rates['without']):.1f} rays/s")
     walls_gate(imgs["with"], WIDTH)
     save_png(ways["with"], imgs["with"], "cornell_512.png")
-    return pm
+    return pm, batch
+
+
+def _grad_scenes(dev):
+    """tests/test_gradients.py's scenes on the card in float64, as the
+    load_scene-like records gradcheck takes: the closed diffuse box, the
+    box with a glass sphere, the floor quad, and (a Scene) the glass
+    sphere over a floor triangle of the photon-path check."""
+    import torch
+    from types import SimpleNamespace
+    from gi_raytracer_tpu_torch.config import RenderConfig
+    from gi_raytracer_tpu_torch.scene import SceneBuilder
+    from gi_raytracer_tpu_torch.scene.meshgen import quad_mesh
+
+    def record(b, cam_pos):
+        return SimpleNamespace(
+            scene=b.build(dtype=torch.float64, device=dev),
+            config=RenderConfig(dtype="float64"), camera_pos=cam_pos,
+            camera_look_at=(0.0, 0.0, 0.0))
+
+    def box(with_glass):
+        b = SceneBuilder()
+        tex = [b.add_texture_const(c) for c in ((0.9, 0.9, 0.9),
+                                                (0.8, 0.2, 0.2),
+                                                (0.2, 0.2, 0.8), (0, 0, 0))]
+        m = [b.add_material(t, tex[3], 1.0, 1.0, 1.0) for t in tex[:3]]
+        s = 4.0
+        for quad, mat in (
+                (((-s, -s, -s), (s, -s, -s), (-s, -s, s), (s, -s, s)), m[0]),
+                (((-s, s, -s), (s, s, -s), (-s, s, s), (s, s, s)), m[0]),
+                (((-s, -s, s), (s, -s, s), (-s, s, s), (s, s, s)), m[0]),
+                (((-s, -s, -s), (-s, -s, s), (-s, s, -s), (-s, s, s)), m[1]),
+                (((s, -s, s), (s, -s, -s), (s, s, s), (s, s, -s)), m[2])):
+            b.add_triangles(quad_mesh(*quad), mat_id=mat)
+        if with_glass:
+            b.add_sphere((0.0, -2.0, 0.0), 1.2,
+                         b.add_material(tex[0], tex[3], 0.0, 0.0, 1.5))
+        b.add_light((0.0, 3.0, 0.0), (8.0, 8.0, 8.0), 0.3)
+        return record(b, (0.0, 0.0, -14.0))
+
+    b = SceneBuilder()
+    m = b.add_material(b.add_texture_const((0.9, 0.9, 0.9)),
+                       b.add_texture_const((0, 0, 0)), 1.0, 1.0, 1.0)
+    b.add_triangles(quad_mesh((-50, 0, -50), (50, 0, -50), (-50, 0, 50),
+                              (50, 0, 50)), mat_id=m)
+    b.add_light((0.0, 8.0, 0.0), (20.0, 20.0, 20.0), 0.3)
+    floor = record(b, (0.0, 5.0, -6.0))
+
+    b = SceneBuilder()
+    white = b.add_texture_const((1.0, 1.0, 1.0))
+    black = b.add_texture_const((0.0, 0.0, 0.0))
+    b.add_triangle([(-20, 0, -20), (20, 0, -20), (0, 0, 30)],
+                   mat_id=b.add_material(white, black, 1.0, 1.0, 1.0))
+    b.add_sphere((0, 2, 0), 0.7, b.add_material(white, black, 0.0, 0.0, 1.5))
+    b.add_light((0, 6, 0), (10, 10, 10), 0.05)
+    glass_floor = b.build(dtype=torch.float64, device=dev)
+    return box(False), box(True), floor, glass_floor
+
+
+def grad_phase(dev, scene, cam, cfg, batch, drive):
+    """The gradient path on the card.
+
+    * The train step of ``bench.py`` (its first rung): the mesh Cornell box
+      at GRAD_SIZE^2, 1 spp, depth GRAD_DEPTH on the staged wave (K2 every
+      trace, K3 every caustic estimate forward, the plain estimator's VJP
+      backward), a map of the first GRAD_PHOTONS slots of the main path's
+      photon batch, loss mean((c - GRAD_TARGET)^2), gradients to the
+      photon colours and the light colour.  One step driven (launches
+      counted; K1 must stay out), then GRAD_REPEATS timed, then one
+      profiled; gates: finite gradients, both norms non-zero.
+    * The same step with the plain forward (``plain=True``: the plain walk
+      and autograd through the plain kNN): loss and each gradient within
+      GRAD_LOSS_RTOL / GRAD_CMP_RTOL (relative L2).
+    * gradcheck's seven families in float64 on the card, each rel_err under
+      the JAX test's tolerance.
+    * ``cli grad-check`` once, on a box with a committed PNG as an image
+      texture (the card host has no Pillow)."""
+    import contextlib
+    import dataclasses
+    import io as _io
+    import shutil
+
+    import torch
+    from gi_raytracer_tpu_torch import cli, gradcheck
+    from gi_raytracer_tpu_torch.config import RenderConfig
+    from gi_raytracer_tpu_torch.ops import _cuda
+    from gi_raytracer_tpu_torch.render import Renderer
+    from gi_raytracer_tpu_torch.render.integrator import radiance_wave
+    from gi_raytracer_tpu_torch.render.photon import (PhotonBatch,
+                                                      build_photon_map)
+    from gi_raytracer_tpu_torch.scene.scn import load_scene
+
+    step_cfg = cfg.replace(min_samples=1, max_samples=1, max_depth=GRAD_DEPTH,
+                           integrator="staged")
+    small = PhotonBatch(*(t[:GRAD_PHOTONS] for t in batch))
+    pm = build_photon_map(small, scene.world_min.cpu().numpy(),
+                          scene.world_max.cpu().numpy())
+    ro, rd, sx, sy = Renderer(scene, cam, step_cfg, GRAD_SIZE,
+                              GRAD_SIZE).wave_inputs(0)
+    lane = torch.arange(ro.shape[0], device=dev)
+    log(f"gradient step: {GRAD_SIZE}x{GRAD_SIZE} 1 spp depth {GRAD_DEPTH}, "
+        f"map of {int(small.stored.sum())} photons {pm.dims} window_cap "
+        f"{pm.window_cap}")
+
+    def step(plain=False):
+        pcol = pm.col.clone().requires_grad_(True)
+        lcol = scene.lights.col[0].clone().requires_grad_(True)
+        lit = dataclasses.replace(scene, lights=dataclasses.replace(
+            scene.lights, col=lcol.expand_as(scene.lights.col)))
+        c, _ = radiance_wave(lit, step_cfg, ro, rd, sx, sy, 0,
+                             dataclasses.replace(pm, col=pcol),
+                             lane_ids=lane, plain=plain)
+        loss = torch.mean((c - GRAD_TARGET) ** 2)
+        return (loss.detach(),) + torch.autograd.grad(loss, (pcol, lcol))
+
+    with Phase("gradient step"):
+        loss, g_pcol, g_lcol = drive("gradient step", step,
+                                     need=("intersect", "knn"),
+                                     absent=("megakernel", "stream"))
+        counts = {k: _cuda.launches[k] for k in ("intersect", "knn")}
+        secs = [timed(step)[1] for _ in range(GRAD_REPEATS)]
+        norms = (g_pcol.norm().item(), g_lcol.norm().item())
+        log(f"gradient step: loss {loss.item():.9g} grad norms photon "
+            f"colours {norms[0]:.9g} light colour {norms[1]:.9g}; launches "
+            f"K2 {counts['intersect']} K3 {counts['knn']}; seconds "
+            f"{[round(x, 4) for x in secs]} median "
+            f"{statistics.median(secs):.4f} (after the driven step)")
+        require(torch.isfinite(loss) and torch.isfinite(g_pcol).all()
+                and torch.isfinite(g_lcol).all(), "finite gradients")
+        require(norms[0] > 0 and norms[1] > 0, ("non-zero gradients", norms))
+    profile("gradient step", step)
+
+    with Phase("gradient step vs plain forward"):
+        loss_p, gp_pcol, gp_lcol = step(plain=True)
+        loss_k, gk_pcol, gk_lcol = step()
+        rel_loss = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        rel = [((a - b).norm() / b.norm()).item()
+               for a, b in ((gk_pcol, gp_pcol), (gk_lcol, gp_lcol))]
+        err = [(a - b).abs().max().item()
+               for a, b in ((gk_pcol, gp_pcol), (gk_lcol, gp_lcol))]
+        log(f"gradient step against the plain forward: loss rel err "
+            f"{rel_loss:.3e}; photon colours rel L2 {rel[0]:.3e} max abs "
+            f"{err[0]:.3e}; light colour rel L2 {rel[1]:.3e} max abs "
+            f"{err[1]:.3e}")
+        require(rel_loss <= GRAD_LOSS_RTOL, ("loss", rel_loss))
+        require(max(rel) <= GRAD_CMP_RTOL, ("gradients", rel))
+        del gp_pcol, gp_lcol, gk_pcol, gk_lcol
+
+    with Phase("gradcheck families (float64)"):
+        box, box_glass, floor, glass_floor = _grad_scenes(dev)
+        reps = [fn(box_glass if name == "ior" else
+                   floor if name == "vertices" else box)
+                for name, fn in gradcheck.ALL_CHECKS.items()]
+        photon_cfg = RenderConfig(photons=512, photon_depth=5,
+                                  dtype="float64")
+        reps.append(gradcheck.check_light_color_through_photons(
+            glass_floor, photon_cfg))
+        for rep in reps:
+            tol = GRADCHECK_TOL.get(rep.name, 1e-2)
+            log(f"gradcheck {rep.name}: rel_err {rep.rel_err:.3e} (gate "
+                f"{tol}) analytic {np.asarray(rep.analytic).tolist()} fd "
+                f"{np.asarray(rep.fd).tolist()}")
+            require(rep.rel_err < tol, (rep.name, rep.rel_err))
+            require(np.abs(rep.analytic).max() > 0, (rep.name, "zero"))
+
+    with Phase("cli grad-check"), tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(os.path.join(HERE, GRAD_CLI_TEXTURE),
+                    os.path.join(tmp, "tex.png"))
+        scn = os.path.join(tmp, "grad.scn")
+        with open(scn, "w") as f:
+            f.write(GRAD_CLI_SCENE)
+        require(load_scene(scn, device=dev).scene.has_image_tex,
+                "the image texture loads")
+        out = _io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["grad-check", scn, "-W", "16"])
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            log(f"cli grad-check: {line}")
+        got = {x["metric"]: x for x in map(json.loads, lines[1:])}
+        require(list(got) == [f"grad_rel_err_{n}"
+                              for n in gradcheck.ALL_CHECKS], list(got))
+        require(not any("error" in x for x in got.values()), "no errors")
+        for name in ("light_col", "texture_col", "roughness", "ior"):
+            require(got[f"grad_rel_err_{name}"]["pass"], name)
 
 
 def main(argv) -> int:
@@ -475,7 +700,7 @@ def main(argv) -> int:
             log(f"K1 wave without the map: {WIDTH}x{HEIGHT} ({n_closest} "
                 f"closest-hit rays) ms {ms:.3f}")
         with Phase("Cornell path"):
-            pm = cornell_path(scene, cfg, cam)
+            pm, _ = cornell_path(scene, cfg, cam)
         with Phase("K3"):
             from gi_raytracer_tpu_torch.render.photon_knn import (
                 sample_photons_tiled)
@@ -604,9 +829,9 @@ def main(argv) -> int:
 
     # ---- 3. the Cornell main path, timed before the comparisons ---------
     with Phase("main path"):
-        pm = drive("Cornell main path", lambda: cornell_path(scene, cfg, cam),
-                   need=("intersect", "megakernel", "knn"),
-                   absent=("stream",))
+        pm, cornell_batch = drive(
+            "Cornell main path", lambda: cornell_path(scene, cfg, cam),
+            need=("intersect", "megakernel", "knn"), absent=("stream",))
     profile("Cornell render with the map",
             Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm).render)
     with Phase("Cornell photon pass profile"):
@@ -1329,6 +1554,10 @@ def main(argv) -> int:
             require(full.max() > 0.05, "CLI image not black")
             require((full == resumed).all(), "resumed render equals the "
                     "uninterrupted one")
+
+    # ---- 10. gradients: the train step, gradcheck, cli grad-check --------
+    grad_phase(dev, scene, cam, cfg, cornell_batch, drive)
+    del cornell_batch
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

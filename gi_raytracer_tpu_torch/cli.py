@@ -1,12 +1,17 @@
-"""Command-line interface: the ``render`` subcommand.
+"""Command-line interface: the ``render`` and ``grad-check`` subcommands.
 
-Counterpart of ``gi_raytracer_tpu.cli render``, with the same flags and
-output lines, plus ``--device`` (the card by default; ``--device cpu``
-runs every kernel's plain version):
+Counterpart of ``gi_raytracer_tpu.cli render`` and ``grad-check``, with
+the same flags and output lines, plus ``--device`` (the card by default;
+``--device cpu`` runs every kernel's plain version):
 
   python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png
   python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png \\
       -W 128 -H 128 --photons 20000 --checkpoint ck.npz --resume
+  python -m gi_raytracer_tpu_torch.cli grad-check scene.scn -W 16
+
+``grad-check`` prints one JSON line per gradient family of
+``gradcheck.ALL_CHECKS`` (``grad_rel_err_<name>``: the analytic gradient
+against central finite differences, at max(16, min(W, 64)) pixels square).
 
 ``--checkpoint`` saves the accumulation state after every wave (atomic
 npz with a meta record of resolution, seed, sampling config and the scene
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import json
 import os
 import time
 
@@ -117,30 +123,57 @@ def cmd_render(args):
     print(f"[out] {args.output}")
 
 
+def cmd_grad_check(args):
+    """Validate the renderer's gradients against central finite
+    differences for every parameter family of ``gradcheck.ALL_CHECKS``;
+    prints one JSON line per family (an ``error`` line for a family that
+    raises, and the others still run)."""
+    from . import gradcheck
+
+    ls, cfg, cam = _build(args)
+    ls.config = cfg
+    size = max(16, min(args.width, 64))
+    for name, fn in gradcheck.ALL_CHECKS.items():
+        if name == "light_col" and ls.scene.lights.count == 0:
+            continue    # ambient-only scenes
+        try:
+            rep = fn(ls, size=size)
+        except Exception as e:  # report, keep checking the rest
+            print(json.dumps({"metric": f"grad_rel_err_{name}",
+                              "error": str(e)[:200], "pass": False}))
+            continue
+        print(json.dumps({"metric": f"grad_rel_err_{name}",
+                          "value": rep.rel_err,
+                          "analytic": np.asarray(rep.analytic).tolist(),
+                          "fd": np.asarray(rep.fd).tolist(),
+                          "pass": bool(rep.ok)}))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gi_raytracer_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("render")
-    sp.add_argument("scene")
-    sp.add_argument("-o", "--output", default="render.png")
-    sp.add_argument("-W", "--width", type=int, default=512)
-    sp.add_argument("-H", "--height", type=int, default=512)
-    sp.add_argument("--spp", type=int, default=0,
-                    help="fixed samples/pixel (0 = scene adaptive)")
-    sp.add_argument("--max-depth", type=int, default=0)
-    sp.add_argument("--photons", type=int, default=None)
-    sp.add_argument("--no-photons", action="store_true")
-    sp.add_argument("--preview", default=None, metavar="PNG",
-                    help="write a tonemapped preview after every wave")
-    sp.add_argument("--checkpoint", default=None, metavar="NPZ",
-                    help="save accumulation state after every wave")
-    sp.add_argument("--resume", action="store_true",
-                    help="resume from --checkpoint if it exists")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; cpu runs the plain "
-                         "versions)")
-    sp.add_argument("-v", "--verbose", action="store_true")
-    sp.set_defaults(fn=cmd_render)
+    for name, fn in (("render", cmd_render), ("grad-check", cmd_grad_check)):
+        sp = sub.add_parser(name)
+        sp.add_argument("scene")
+        sp.add_argument("-o", "--output", default="render.png")
+        sp.add_argument("-W", "--width", type=int, default=512)
+        sp.add_argument("-H", "--height", type=int, default=512)
+        sp.add_argument("--spp", type=int, default=0,
+                        help="fixed samples/pixel (0 = scene adaptive)")
+        sp.add_argument("--max-depth", type=int, default=0)
+        sp.add_argument("--photons", type=int, default=None)
+        sp.add_argument("--no-photons", action="store_true")
+        sp.add_argument("--preview", default=None, metavar="PNG",
+                        help="write a tonemapped preview after every wave")
+        sp.add_argument("--checkpoint", default=None, metavar="NPZ",
+                        help="save accumulation state after every wave")
+        sp.add_argument("--resume", action="store_true",
+                        help="resume from --checkpoint if it exists")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "plain versions)")
+        sp.add_argument("-v", "--verbose", action="store_true")
+        sp.set_defaults(fn=fn)
     args = p.parse_args(argv)
     args.fn(args)
 

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from ..render.shading import build_prim_rows, PR_IOR, PR_W
+from ..scene.types import dataclass_tensors, derived
 from . import _cuda
 from . import cuda_intersect as ci
 from .intersect import chunk_boxes, trace_tables
@@ -78,12 +79,21 @@ def build_mega_tables(scene):
 
 
 def mega_tables(scene):
-    """``build_mega_tables``, built once per Scene object and kept on it."""
-    tab = scene.__dict__.get("_mega_tables")
-    if tab is None:
-        tab = build_mega_tables(scene)
-        scene.__dict__["_mega_tables"] = tab
-    return tab
+    """``build_mega_tables``, kept on the Scene object and built again after
+    its tensors change (``types.derived``)."""
+    return derived(scene, "_mega_tables", scene.table_sources(),
+                   lambda: build_mega_tables(scene))
+
+
+def _needs_grad(scene, ro, rd, photon_map) -> bool:
+    """Whether autograd would want a gradient through the wave: grad mode
+    on, and a scene leaf, the rays or the map's photons requiring one."""
+    if not torch.is_grad_enabled():
+        return False
+    ts = scene.table_sources() + dataclass_tensors(scene.lights) + [ro, rd]
+    if photon_map is not None:
+        ts += [photon_map.pos, photon_map.dir, photon_map.col]
+    return any(t.requires_grad for t in ts)
 
 
 def radiance_wave_mega(scene, cfg, ro, rd, sx_all, sy_all, lane_u32,
@@ -97,6 +107,11 @@ def radiance_wave_mega(scene, cfg, ro, rd, sx_all, sy_all, lane_u32,
     why = mega_why_not(scene, cfg)
     if why:
         raise ValueError("scene is not megakernel-eligible: " + "; ".join(why))
+    if _needs_grad(scene, ro, rd, photon_map):
+        raise ValueError(
+            "the megakernel is forward-only and its image carries no "
+            "gradient: gradient paths call the staged radiance_wave "
+            "(Renderer._wave)")
     if ro.device.type == "cpu":
         if tests is not None:
             raise ValueError("test counts are the kernel's; the plain wave "

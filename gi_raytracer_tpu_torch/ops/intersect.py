@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..sampling.rng import hash_u01
+from ..scene.types import derived
 from . import cuda_intersect as ci
 from . import cuda_stream as cs
 
@@ -204,35 +205,26 @@ def _analytic_passes(scene, ro, rd, hit, salt, active, t_max, ray_id):
 
 
 def trace_tables(scene):
-    """The scene's trace tables (``build_tri_features``), built once per
-    Scene object and kept on it."""
-    tab = scene.__dict__.get("_trace_tables")
-    if tab is None:
-        tab = ci.build_tri_features(scene)
-        scene.__dict__["_trace_tables"] = tab
-    return tab
+    """The scene's trace tables (``build_tri_features``), kept on the Scene
+    object and built again after its tensors change (``types.derived``)."""
+    return derived(scene, "_trace_tables", scene.table_sources(),
+                   lambda: ci.build_tri_features(scene))
 
 
 def chunk_boxes(scene):
     """The scene's 128-row chunk boxes (``cuda_intersect.build_boxes`` of
-    its trace table), which K2 and K4 walk; built once per Scene object and
-    kept on it."""
-    box = scene.__dict__.get("_chunk_boxes")
-    if box is None:
-        box = ci.build_boxes(scene, trace_tables(scene)[0].shape[0],
-                             ci.CHUNK_ROWS)
-        scene.__dict__["_chunk_boxes"] = box
-    return box
+    its trace table), which K2 and K4 walk; kept like ``trace_tables``."""
+    return derived(scene, "_chunk_boxes", scene.table_sources(),
+                   lambda: ci.build_boxes(scene, trace_tables(scene)[0]
+                                          .shape[0], ci.CHUNK_ROWS))
 
 
 def stream_boxes(scene):
     """The scene's superchunk boxes (``cuda_stream.build_superchunk_boxes``
-    of its trace table), built once per Scene object and kept on it."""
-    box = scene.__dict__.get("_stream_boxes")
-    if box is None:
-        box = cs.build_superchunk_boxes(scene, trace_tables(scene)[0].shape[0])
-        scene.__dict__["_stream_boxes"] = box
-    return box
+    of its trace table), kept like ``trace_tables``."""
+    return derived(scene, "_stream_boxes", scene.table_sources(),
+                   lambda: cs.build_superchunk_boxes(
+                       scene, trace_tables(scene)[0].shape[0]))
 
 
 def uses_stream(scene) -> bool:

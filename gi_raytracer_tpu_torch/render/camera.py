@@ -22,10 +22,11 @@ class Camera:
     focal_blur: float = 0.0
 
     def basis(self, dtype=torch.float32, device=None):
-        """(pos, forward, up, cam_right)."""
-        pos = torch.tensor(self.pos, dtype=dtype, device=device)
-        fwd = normalize(torch.tensor(self.look_at, dtype=dtype,
-                                     device=device) - pos)
+        """(pos, forward, up, cam_right).  ``pos`` and ``look_at`` may be
+        tensors that carry a gradient (``torch.as_tensor`` keeps it)."""
+        pos = torch.as_tensor(self.pos, dtype=dtype, device=device)
+        fwd = normalize(torch.as_tensor(self.look_at, dtype=dtype,
+                                        device=device) - pos)
         up0 = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device)
         right = normalize(torch.linalg.cross(up0, fwd))
         up = torch.linalg.cross(fwd, right)

@@ -39,6 +39,7 @@ from ..ops import _cuda
 from ..ops.intersect import trace_closest_rows, trace_any
 from ..sampling.halton import HaltonSampler, HaltonEnum, MAX_QMC_DIMS
 from ..sampling.rng import Purpose, hash_u01
+from ..scene.types import derived
 from .atmosphere import fog_occludes, fog_override
 from .camera import Camera, primary_rays
 from .geom import normalize, random_unit_vec, PI
@@ -252,7 +253,6 @@ class Renderer:
         self._inv_perm_t = torch.as_tensor(self._inv_perm, device=self.device)
         self._offsets_t = torch.as_tensor(
             self.enum.offsets.astype(np.int64).ravel(), device=self.device)
-        self._prim_rows = None
         self.block_adaptive = (block_compaction and config.adaptive
                                and config.max_samples > config.min_samples
                                and height % B == 0 and width % B == 0)
@@ -264,10 +264,10 @@ class Renderer:
         return torch.float64 if self.cfg.dtype == "float64" else torch.float32
 
     def prim_rows(self):
-        """The packed shade-row table, built once per renderer."""
-        if self._prim_rows is None:
-            self._prim_rows = build_prim_rows(self.scene)
-        return self._prim_rows
+        """The packed shade-row table of the renderer's scene, kept on the
+        renderer and built again after the scene's tensors change."""
+        return derived(self, "_prim_rows", self.scene.table_sources(),
+                       lambda: build_prim_rows(self.scene))
 
     def _bounce_samples(self, idx_flat):
         """(D, R) QMC pairs for every bounce: dims 2+2d and 3+2d."""
@@ -295,6 +295,27 @@ class Renderer:
                               xr * self.enum.scale_x, yr * self.enum.scale_y)
         sx_all, sy_all = self._bounce_samples(idx)
         return ro, rd, sx_all, sy_all
+
+    def _wave(self, scene, photon_map, idx_flat, wave_i: int):
+        """The gradient entry: one full-frame wave of ``scene`` (any Scene
+        of the renderer's camera and size, its tensors possibly carrying
+        gradients) -> (H*W, 3) radiance in raster order.  ``idx_flat`` is
+        the raster-order per-pixel Halton indices (``enum.index_image``).
+        Gradients always take the staged ``radiance_wave`` (the
+        megakernel is forward-only), and its shade rows are built from
+        ``scene`` itself, never from the renderer's own table."""
+        N = self.width * self.height
+        idx = torch.as_tensor(idx_flat, device=self.device)[self._perm_t]
+        xr = self.sampler.sample(0, idx, self._index_bits).to(self.dtype)
+        yr = self.sampler.sample(1, idx, self._index_bits).to(self.dtype)
+        ro, rd = primary_rays(self.camera, self.width, self.height,
+                              xr * self.enum.scale_x, yr * self.enum.scale_y)
+        sx_all, sy_all = self._bounce_samples(idx)
+        out, _ = radiance_wave(scene, self.cfg.replace(integrator="staged"),
+                               ro, rd, sx_all, sy_all, 0, photon_map,
+                               lane_base=int(wave_i) * N,
+                               prim_rows=build_prim_rows(scene))
+        return out[self._inv_perm_t]
 
     def wave_radiance(self, wave: int):
         """One full-frame wave -> ((H, W, 3) raster radiance, ray count)."""
@@ -369,6 +390,9 @@ class Renderer:
         accumulation state, which can be saved and passed back as
         ``state=`` to resume the render (the checkpoint hook)."""
         st = state if state is not None else self.state0()
+        if "rays" not in st:    # resume from an old checkpoint
+            st = dict(st, rays=torch.zeros((), dtype=torch.float32,
+                                           device=self.device))
         self.wave_blocks = []
         H, W = self.height, self.width
         for s in range(int(st["wave"]), self.cfg.max_samples):

@@ -3,8 +3,11 @@ estimate (counterpart of ``gi_raytracer_tpu.render.photon``).
 
 * Emission is a wavefront: every slot emits at once; a slot's retries are
   masked re-emission rounds (at most ``cfg.photon_retries``) that stop as
-  soon as every slot stored; the specular continuation chain runs
-  ``cfg.photon_depth`` closest-hit traces.
+  soon as every slot stored (all of them with ``differentiable=True``);
+  the specular continuation chain runs ``cfg.photon_depth`` closest-hit
+  traces.
+* ``PhotonMap.rebind`` puts a re-traced batch on a map's frozen structure:
+  the gradient path through the caustic estimate.
 * The map is a uniform grid fitted to the stored photons, refined until the
   densest cell holds at most ``window_cap_max`` photons; photons are sorted
   by cell with a stable argsort and ``cell_start`` holds the cell ranges.
@@ -51,6 +54,16 @@ class PhotonMap:
     @property
     def capacity(self) -> int:
         return self.pos.shape[0]
+
+    def rebind(self, batch: "PhotonBatch") -> "PhotonMap":
+        """Re-attach a (differentiably re-traced) PhotonBatch to this map's
+        frozen structure (cells, sort order, window cap): the
+        detached-structure estimator, whose photon positions, directions
+        and colours carry gradients back to light and material
+        parameters."""
+        o = self.order.long()
+        return dataclasses.replace(self, pos=batch.pos[o], dir=batch.dir[o],
+                                   col=batch.col[o], valid=batch.stored[o])
 
 
 class PhotonBatch(NamedTuple):
@@ -138,10 +151,12 @@ def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
 
 
 def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
-                n_slots: int, total_count: int) -> PhotonBatch:
+                n_slots: int, total_count: int,
+                differentiable: bool = False) -> PhotonBatch:
     """First-success emission for slots [start, start+n_slots) of light
     ``li``: masked retry rounds until every slot stored or
-    ``cfg.photon_retries`` rounds ran."""
+    ``cfg.photon_retries`` rounds ran (``differentiable``: every round,
+    with no early exit, as the JAX package's ``lax.scan``)."""
     retries = max(cfg.photon_retries, 1)
     dev = scene.device
     dt = scene.lights.pos.dtype
@@ -151,7 +166,7 @@ def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
     col = torch.zeros_like(pos)
     stored = torch.zeros(n_slots, dtype=torch.bool, device=dev)
     for rnd in range(retries):
-        if bool(stored.all()):
+        if not differentiable and bool(stored.all()):
             break
         h_idx = (slot * retries + rnd) & 0xFFFFFFFF
         wave = _emit_attempts(scene, cfg, sampler, li, h_idx, uniform, chunk,
@@ -164,12 +179,25 @@ def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
     return PhotonBatch(pos, dirs, col, stored)
 
 
-@torch.no_grad()
 def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
-                  uniform=None) -> PhotonBatch:
+                  uniform=None, differentiable: bool = False) -> PhotonBatch:
     """Emit ``count`` (default ``cfg.photons``) photon slots per light in
     chunks of ``cfg.ray_chunk`` slots.  Returns per-slot arrays; ``stored``
-    is the success mask."""
+    is the success mask.
+
+    ``differentiable=False`` (the render path) runs under
+    ``torch.no_grad()`` and stops a chunk's retry rounds once every slot
+    stored.  ``differentiable=True`` keeps autograd on and runs exactly
+    ``cfg.photon_retries`` rounds, so the stored photons' colours and
+    positions carry gradients to the light and material parameters (hit
+    selection detached); on the slots both store, the two batches are
+    equal for the same ``uniform`` draws."""
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        return _trace_photons(scene, cfg, sampler, count, uniform,
+                              differentiable)
+
+
+def _trace_photons(scene, cfg, sampler, count, uniform, differentiable):
     sampler = sampler or HaltonSampler()
     count = count or cfg.photons
     uniform = uniform or TorchUniform(cfg.seed, scene.device)
@@ -186,7 +214,8 @@ def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
         for start in range(0, count, per_chunk):
             n = min(per_chunk, count - start)
             parts.append(_emit_chunk(scene, cfg, sampler, uniform,
-                                     start // per_chunk, start, li, n, count))
+                                     start // per_chunk, start, li, n, count,
+                                     differentiable))
     return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
                          for f in PhotonBatch._fields))
 

@@ -14,18 +14,28 @@ The TPU tile machinery (Morton tiles, the chunk table, tile classes, pass 2
 and the chunk-row residual) is not ported: it exists for the TPU's layout.
 The kernel answers each query with one warp (:func:`knn_info` reports its
 resources on the card).
-The render path runs under ``torch.no_grad()``; the kNN backward comes
-with training, so the CUDA wrapper raises on inputs that need a gradient.
+
+Gradients: ``sample_photons_tiled`` is a ``torch.autograd.Function``
+whose forward is the kernel (the plain version on the CPU) and whose
+backward is the vector-Jacobian product of the plain estimator
+(``_block_estimate``) with respect to the query points and directions and
+the map's photon positions, directions and colours, recomputed lane chunk
+by lane chunk: the counterpart of the JAX custom VJP
+(``photon_knn._make_tiled_fn``), which differentiates a plain jnp
+estimator and reaches no TPU kernel.  The map's structure (cells, order,
+window cap) and the k-nearest selection are detached.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..ops import _cuda
+from ..scene.types import derived
 from .geom import PI
 
 FAR = 1e29        # queries at or past this x are far sentinels (estimate 0)
@@ -61,7 +71,11 @@ def _window(pm, gi):
 
 
 def _block_estimate(pm, point, direction, k):
-    """photon._sample_photons_block: (B, 3) estimates."""
+    """photon._sample_photons_block: (B, 3) estimates.  Every masked
+    branch that can hold inf or NaN (the distance of an invalid slot, the
+    photons of a slot past the k found, the radius of a lane that found
+    none) is scrubbed before the arithmetic, so that a gradient never
+    meets 0 * inf; the estimate is the same."""
     R = point.shape[0]
     cap = int(pm.window_cap)
     gi = _cells(pm, point)
@@ -77,12 +91,12 @@ def _block_estimate(pm, point, direction, k):
         idx_l.append(torch.clamp(sl, 0, pm.capacity - 1))
         ok_l.append((sl < end[:, None]) & ~dup[:, None])
     idx = torch.cat(idx_l, 1)
-    ok = torch.cat(ok_l, 1)
-    dp = pm.pos[idx] - point[:, None, :]
+    ok = torch.cat(ok_l, 1) & pm.valid[idx]
+    dp = torch.where(ok[..., None], pm.pos[idx] - point[:, None, :], 0.0)
     # (dx*dx + dy*dy) + dz*dz, the kernel's order
     d2 = (dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1]) \
         + dp[..., 2] * dp[..., 2]
-    d2 = torch.where(ok & pm.valid[idx], d2, torch.inf)
+    d2 = torch.where(ok, d2, torch.inf)
     kk = min(k, d2.shape[1])
     # a stable sort: among equal distances the lower candidate slot wins,
     # as in jax.lax.top_k
@@ -91,18 +105,39 @@ def _block_estimate(pm, point, direction, k):
     found = torch.isfinite(top_d2)
     n_found = found.sum(1)
     sel = torch.gather(idx, 1, top_i)
-    w = torch.sum(pm.dir[sel] * direction[:, None, :], -1)
-    contrib = torch.where(found[:, :, None], pm.col[sel] * w[:, :, None], 0.0)
+    fs = found[:, :, None]
+    w = torch.sum(torch.where(fs, pm.dir[sel], 0.0) * direction[:, None, :],
+                  -1)
+    contrib = torch.where(fs, pm.col[sel], 0.0) * w[:, :, None]
     total = contrib.sum(1)
     kth = torch.clamp(n_found - 1, 0, kk - 1)
-    max_d2 = torch.gather(top_d2, 1, kth[:, None])[:, 0]
     has = n_found > 0
+    max_d2 = torch.where(has, torch.gather(top_d2, 1, kth[:, None])[:, 0],
+                         1.0)
     denom = torch.where(has, PI * torch.clamp(max_d2, min=1e-20), 1.0)
     est = torch.where(has[:, None], total / denom[:, None], 0.0)
     dt = point.dtype
     p_rate = torch.where(n_true > 0,
                          n_got.to(dt) / torch.clamp(n_true, min=1).to(dt), 1.0)
     return est / torch.clamp(p_rate, min=1e-6)[:, None]
+
+
+def _live_lanes(pm, point):
+    """Lanes whose window holds a photon and that are no far sentinel (the
+    others' estimate is exactly 0)."""
+    gi = _cells(pm, point)
+    occ = torch.zeros(point.shape[0], dtype=torch.int64, device=point.device)
+    for start, end, _ in _window(pm, gi):
+        occ = occ + (end - start)
+    return torch.nonzero((occ > 0) & (point[:, 0] < FAR)).squeeze(1)
+
+
+def _lane_chunk(pm) -> int:
+    """Lanes per block: bounds the (B, 27*cap) candidate intermediates to
+    about 16M entries."""
+    window = 27 * max(int(pm.window_cap), 1)
+    return int(np.clip(2 ** int(np.log2(max(16_777_216 // window, 1024))),
+                       1024, 32768))
 
 
 def sample_photons_plain(pm, point, direction, k, lane_chunk=None):
@@ -115,27 +150,92 @@ def sample_photons_plain(pm, point, direction, k, lane_chunk=None):
     out = torch.zeros((R, 3), dtype=point.dtype, device=point.device)
     if R == 0:
         return out
-    gi = _cells(pm, point)
-    occ = torch.zeros(R, dtype=torch.int64, device=point.device)
-    for start, end, _ in _window(pm, gi):
-        occ = occ + (end - start)
-    live = torch.nonzero((occ > 0) & (point[:, 0] < FAR)).squeeze(1)
-    if lane_chunk is None:
-        window = 27 * max(int(pm.window_cap), 1)
-        lane_chunk = int(np.clip(2 ** int(np.log2(
-            max(16_777_216 // window, 1024))), 1024, 32768))
+    live = _live_lanes(pm, point)
+    lane_chunk = lane_chunk or _lane_chunk(pm)
     for s in range(0, live.shape[0], lane_chunk):
         ids = live[s:s + lane_chunk]
         out[ids] = _block_estimate(pm, point[ids], direction[ids], k)
     return out
 
 
-def sample_photons_tiled(pm, point, direction, k):
-    """The caustic estimate of the render path: on CPU tensors the plain
-    version, on CUDA tensors the kNN kernel (``csrc/knn.cu``)."""
+def _estimate_vjp(pm, k, point, direction, grad, need):
+    """The VJP of the plain estimator: the gradients of
+    ``sum(grad * estimate)`` with respect to (point, direction, pm.pos,
+    pm.dir, pm.col), each None where ``need`` says so.  It recomputes
+    ``_block_estimate`` lane chunk by lane chunk under grad mode and sums
+    the chunks' photon gradients, so at most one chunk's (B, 27*cap)
+    intermediates are alive; lanes the forward leaves at 0 (empty window,
+    far sentinel) get a zero gradient."""
+    R = point.shape[0]
+    g_pt = torch.zeros_like(point) if need[0] else None
+    g_dir = torch.zeros_like(direction) if need[1] else None
+    photons = [t.detach().requires_grad_(n)
+               for t, n in zip((pm.pos, pm.dir, pm.col), need[2:])]
+    g_ph = [torch.zeros_like(t) if n else None
+            for t, n in zip(photons, need[2:])]
+    if R == 0 or not any(need):
+        return (g_pt, g_dir, *g_ph)
+    pm_d = dataclasses.replace(pm, pos=photons[0], dir=photons[1],
+                               col=photons[2])
+    live = _live_lanes(pm, point)
+    B = _lane_chunk(pm)
+    with torch.enable_grad():
+        for s in range(0, live.shape[0], B):
+            ids = live[s:s + B]
+            p = point[ids].detach().requires_grad_(need[0])
+            d = direction[ids].detach().requires_grad_(need[1])
+            est = _block_estimate(pm_d, p, d, k)
+            wrt = [x for x, n in zip((p, d, *photons), need) if n]
+            got = iter(torch.autograd.grad(est, wrt, grad[ids]))
+            if need[0]:
+                g_pt[ids] = next(got)
+            if need[1]:
+                g_dir[ids] = next(got)
+            for i in range(3):
+                if need[2 + i]:
+                    g_ph[i] += next(got)
+    return (g_pt, g_dir, *g_ph)
+
+
+def _estimate(pm, point, direction, k):
+    """The forward: the kNN kernel on CUDA tensors, the plain version on
+    CPU tensors."""
     if point.device.type == "cpu":
         return sample_photons_plain(pm, point, direction, k)
     return _knn_cuda(pm, point, direction, k)
+
+
+class _KnnEstimate(torch.autograd.Function):
+    """The caustic estimate with a backward: forward :func:`_estimate`,
+    backward :func:`_estimate_vjp`.  The photon tensors are passed beside
+    the map so that autograd sees them; only the inputs are saved."""
+
+    @staticmethod
+    def forward(ctx, pm, k, point, direction, pos, pdir, pcol):
+        ctx.pm, ctx.k = pm, k
+        ctx.save_for_backward(point, direction)
+        return _estimate(pm, point, direction, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        point, direction = ctx.saved_tensors
+        grads = _estimate_vjp(ctx.pm, ctx.k, point, direction, grad,
+                             ctx.needs_input_grad[2:])
+        return (None, None, *grads)
+
+
+def sample_photons_tiled(pm, point, direction, k):
+    """The caustic estimate of the render path: on CPU tensors the plain
+    version, on CUDA tensors the kNN kernel (``csrc/knn.cu``); gradients
+    flow to ``point``, ``direction`` and the map's ``pos``, ``dir`` and
+    ``col`` through the plain estimator's VJP.  Where no gradient is
+    wanted (the render path runs under ``torch.no_grad()``) the forward
+    runs without the Function, whose bookkeeping costs about as much host
+    time as the kernel takes on the card."""
+    ts = (point, direction, pm.pos, pm.dir, pm.col)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return _KnnEstimate.apply(pm, k, *ts)
+    return _estimate(pm, point, direction, k)
 
 
 def knn_info() -> dict:
@@ -153,30 +253,29 @@ def knn_info() -> dict:
 def _knn_tables(pm):
     """The map as the kernel reads it (float32 photons, uint8 valid flags,
     int32 cell ranges, the grid's origin and inverse cell size as Python
-    floats), built once per PhotonMap object and kept on it: each render
-    wave then launches the kernel without a conversion or a host sync."""
-    tab = pm.__dict__.get("_knn_tables")
-    if tab is None:
-        tab = (pm.pos.float().contiguous(), pm.dir.float().contiguous(),
-               pm.col.float().contiguous(),
-               pm.valid.to(torch.uint8).contiguous(),
-               pm.cell_start.to(torch.int32).contiguous(),
-               [float(x) for x in pm.grid_min.tolist()],
-               [float(x) for x in pm.inv_cell.tolist()])
-        pm.__dict__["_knn_tables"] = tab
-    return tab
+    floats), kept on the PhotonMap object and built again after its
+    tensors change (``types.derived``): each render wave then launches the
+    kernel without a conversion or a host sync."""
+    def build():
+        return (pm.pos.detach().float().contiguous(),
+                pm.dir.detach().float().contiguous(),
+                pm.col.detach().float().contiguous(),
+                pm.valid.to(torch.uint8).contiguous(),
+                pm.cell_start.to(torch.int32).contiguous(),
+                [float(x) for x in pm.grid_min.tolist()],
+                [float(x) for x in pm.inv_cell.tolist()])
+
+    return derived(pm, "_knn_tables", (pm.pos, pm.dir, pm.col, pm.valid,
+                                       pm.cell_start, pm.grid_min,
+                                       pm.inv_cell), build)
 
 
 def _knn_cuda(pm, point, direction, k):
-    if point.requires_grad or pm.col.requires_grad or pm.pos.requires_grad:
-        raise NotImplementedError(
-            "the kNN kernel is forward-only; gradients through the caustic "
-            "estimate wait for the kNN backward (ROADMAP A.6)")
     if not 1 <= k <= KMAX:
         raise ValueError(f"knn k={k} outside [1, {KMAX}]")
     R = point.shape[0]
-    q = point.float().contiguous()
-    qd = direction.float().contiguous()
+    q = point.detach().float().contiguous()
+    qd = direction.detach().float().contiguous()
     ppos, pdir, pcol, pval, cs, g, iv = _knn_tables(pm)
     _cuda.require_cuda("knn", q, qd, ppos, pdir, pcol, pval, cs)
     P = ppos.shape[0]

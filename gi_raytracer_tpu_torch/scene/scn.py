@@ -20,7 +20,8 @@ Grammar (whitespace-separated tokens, ``#`` comments):
   camera <px py pz> <lx ly lz>
 
 Returns the compiled Scene (on the card unless ``device="cpu"``) plus the
-camera and config overrides.  ``imTex`` decodes its file with Pillow,
+camera and config overrides.  ``imTex`` decodes a PNG with the port's
+own reader (``io.load_png_rgba``) and any other format with Pillow,
 imported only there.
 """
 
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..io.image import is_png, load_png_rgba
 from .build import SceneBuilder
 from .meshgen import box_mesh
 from .objio import load_obj
@@ -48,12 +50,17 @@ class LoadedScene:
 
 def _load_image_rgba(path: str) -> tuple[np.ndarray, bool]:
     """Image file -> (H, W, 4) linear-space float RGBA + has_alpha flag
-    (de-gamma 2.2 once here, not per fetch)."""
-    from PIL import Image
+    (de-gamma 2.2 once here, not per fetch).  PNGs are decoded by
+    ``io.load_png_rgba`` (``has_alpha`` from the colour type); other
+    formats need Pillow."""
+    if is_png(path):
+        arr, has_alpha = load_png_rgba(path)
+    else:
+        from PIL import Image
 
-    im = Image.open(path)
-    has_alpha = im.mode in ("RGBA", "LA", "PA")
-    arr = np.asarray(im.convert("RGBA"), np.float32) / 255.0
+        im = Image.open(path)
+        has_alpha = im.mode in ("RGBA", "LA", "PA")
+        arr = np.asarray(im.convert("RGBA"), np.float32) / 255.0
     arr[..., :3] = arr[..., :3] ** 2.2
     return arr, has_alpha
 

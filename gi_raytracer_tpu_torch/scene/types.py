@@ -30,6 +30,29 @@ def _to(obj, device):
     return type(obj)(**kw)
 
 
+def dataclass_tensors(*objs) -> list:
+    """Every tensor field of the given dataclasses (None skipped)."""
+    return [v for o in objs if o is not None
+            for v in (getattr(o, f.name) for f in dataclasses.fields(o))
+            if isinstance(v, torch.Tensor)]
+
+
+def derived(owner, name: str, sources, build):
+    """``build()``, kept on ``owner`` under ``name``: the tables the kernels
+    read (float32 copies, packed rows, boxes) are derived from tensors
+    that a caller may replace or update in place (an optimizer step on a
+    scene or map leaf), so the table is built again whenever a tensor of
+    ``sources`` is another object or its version counter moved."""
+    key = [(t, t._version) for t in sources]
+    kept = owner.__dict__.get(name)
+    if kept is not None and len(kept[0]) == len(key) and all(
+            a is b and va == vb for (a, va), (b, vb) in zip(kept[0], key)):
+        return kept[1]
+    value = build()
+    owner.__dict__[name] = (key, value)
+    return value
+
+
 @dataclasses.dataclass
 class Triangles:
     v0: torch.Tensor       # (T, 3)
@@ -175,3 +198,9 @@ class Scene:
 
     def to(self, device) -> "Scene":
         return _to(self, torch.device(device))
+
+    def table_sources(self) -> list:
+        """The tensors every table kept on the scene derives from: the
+        triangles, spheres, cones, materials and textures."""
+        return dataclass_tensors(self.tris, self.spheres, self.cones,
+                                 self.materials, self.textures)

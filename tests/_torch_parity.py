@@ -13,6 +13,7 @@ import functools
 
 import numpy as np
 import jax
+import jax.numpy as jnp
 import torch
 
 from gi_raytracer_tpu_torch import convert
@@ -102,3 +103,22 @@ def random_photon_batch(rng, P, lo, hi):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     col = rng.uniform(0, 0.1, (P, 3)).astype(np.float32)
     return pos, d, col
+
+
+def jax_uniform(seed):
+    """Replays the draws of the JAX emission (photon.py:108-109,154-156,
+    229,285) along the same key path: chunk, round, purpose, light
+    (, depth)."""
+    key = jax.random.PRNGKey(seed)
+
+    def uniform(li, chunk, rnd, depth, shape):
+        kr = jax.random.fold_in(jax.random.fold_in(key, chunk), rnd)
+        if depth < 0:      # PHOTON_EMIT_X: the emission direction
+            k = jax.random.fold_in(jax.random.fold_in(kr, 8), li)
+        else:              # PHOTON_ALPHA: the chain's BSDF uniforms
+            k = jax.random.fold_in(jax.random.fold_in(
+                jax.random.fold_in(kr, 10), li), depth)
+        return torch.from_numpy(np.array(
+            jax.random.uniform(k, shape, jnp.float32)))
+
+    return uniform

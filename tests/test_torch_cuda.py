@@ -253,8 +253,68 @@ def test_knn_kernel_matches_plain(dev):
     assert (got[:16] == 0).all()
     close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
     assert close.float().mean() >= 0.999
-    with pytest.raises(NotImplementedError):
-        sample_photons_tiled(pm, q.requires_grad_(), qd, 32)
+    # a query that needs a gradient still takes the kernel forward
+    n = _cuda.launches["knn"]
+    got_g = sample_photons_tiled(pm, q.clone().requires_grad_(), qd, 32)
+    assert _cuda.launches["knn"] == n + 1
+    assert torch.equal(got_g.detach(), got) and got_g.requires_grad
+
+
+def _seeded_map(dev, seed, P=20000, R=4096, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.randn((P, 3), generator=g, device=dev) * 0.3
+    d = normalize(torch.randn((P, 3), generator=g, device=dev))
+    col = torch.rand((P, 3), generator=g, device=dev)
+    pm = build_photon_map(PhotonBatch(
+        pos.to(dtype), d.to(dtype), col.to(dtype),
+        torch.ones(P, dtype=torch.bool, device=dev)), (-1.5,) * 3, (1.5,) * 3)
+    q = (torch.randn((R, 3), generator=g, device=dev) * 0.4).to(dtype)
+    qd = normalize(torch.randn((R, 3), generator=g, device=dev)).to(dtype)
+    q[:16] = 1e30                               # far sentinels
+    return pm, q, qd, torch.randn((R, 3), generator=g, device=dev).to(dtype)
+
+
+def test_knn_function_grads_with_kernel_forward_equal_plain(dev):
+    """The kNN Function (K3 forward, the plain estimator's VJP backward)
+    against autograd through the plain forward, on a seeded map: the
+    gradients of sum(w * estimate) with respect to the query points and
+    directions and the photons' positions, directions and colours agree
+    to float32 summation order (rtol 1e-4, atol 1e-6 of the largest)."""
+    import dataclasses
+
+    pm, q, qd, w = _seeded_map(dev, 3)
+
+    def grads(fn):
+        m = dataclasses.replace(pm, pos=pm.pos.clone().requires_grad_(),
+                                dir=pm.dir.clone().requires_grad_(),
+                                col=pm.col.clone().requires_grad_())
+        qq = q.clone().requires_grad_()
+        dd = qd.clone().requires_grad_()
+        est = fn(m, qq, dd, 32)
+        return torch.autograd.grad((w * est).sum(),
+                                   (qq, dd, m.pos, m.dir, m.col))
+
+    n = _cuda.launches["knn"]
+    got = grads(sample_photons_tiled)
+    assert _cuda.launches["knn"] == n + 1
+    want = grads(sample_photons)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        scale = b.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * scale)
+    assert (got[0][:16] == 0).all()
+
+
+def test_knn_kernel_follows_an_in_place_map_update(dev):
+    """K3 reads a float32 copy of a float64 map, kept on the map: an
+    in-place update of the map's colours is seen by the next launch."""
+    pm, q, qd, _ = _seeded_map(dev, 4, dtype=torch.float64)
+    first = sample_photons_tiled(pm, q, qd, 32)
+    pm.col.mul_(2.0)
+    second = sample_photons_tiled(pm, q, qd, 32)
+    assert (first.abs() > 0).any()
+    torch.testing.assert_close(second, 2.0 * first, rtol=1e-6, atol=0.0)
 
 
 def _knn_ties_included(pm, q, qd, k):

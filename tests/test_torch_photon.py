@@ -9,7 +9,6 @@ slots, positions within 3e-4, see the test)."""
 import dataclasses
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -19,7 +18,7 @@ from gi_raytracer_tpu.render import photon as jph
 from gi_raytracer_tpu_torch import convert
 from gi_raytracer_tpu_torch.render import photon as tph
 
-from _torch_parity import jax_cornell, port_scene, port_map
+from _torch_parity import jax_cornell, jax_uniform, port_scene, port_map
 
 
 def _clustered(rng, P, spread):
@@ -110,25 +109,6 @@ def test_build_photon_map_matches_jax(name):
     assert np.array_equal(tpm.pos.numpy(), np.asarray(jpm.pos))
 
 
-def _jax_uniform(seed):
-    """Replays the draws of the JAX emission (photon.py:108-109,154-156,
-    229,285) along the same key path: chunk, round, purpose, light
-    (, depth)."""
-    key = jax.random.PRNGKey(seed)
-
-    def uniform(li, chunk, rnd, depth, shape):
-        kr = jax.random.fold_in(jax.random.fold_in(key, chunk), rnd)
-        if depth < 0:      # PHOTON_EMIT_X: the emission direction
-            k = jax.random.fold_in(jax.random.fold_in(kr, 8), li)
-        else:              # PHOTON_ALPHA: the chain's BSDF uniforms
-            k = jax.random.fold_in(jax.random.fold_in(
-                jax.random.fold_in(kr, 10), li), depth)
-        return torch.from_numpy(np.array(
-            jax.random.uniform(k, shape, jnp.float32)))
-
-    return uniform
-
-
 def test_emission_matches_jax_with_replayed_uniforms():
     """2,048 slots, photon depth 5, on the Pallas route the port follows
     (the homogeneous accept test).  A stored position ends a chain of up to
@@ -144,7 +124,7 @@ def test_emission_matches_jax_with_replayed_uniforms():
                      intersect_backend="pallas")
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     want = jph.trace_photons(js, jcfg)
-    got = tph.trace_photons(ts, cfg, uniform=_jax_uniform(jcfg.seed))
+    got = tph.trace_photons(ts, cfg, uniform=jax_uniform(jcfg.seed))
     ws = np.asarray(want.stored)
     assert ws.mean() > 0.98
     assert np.array_equal(got.stored.numpy(), ws)
