@@ -46,7 +46,19 @@ card at the paths' shapes:
   (median of 3 after one warm-up) and profiled; the same step with the
   plain forward, whose loss and gradients must agree; gradcheck's seven
   families in float64 on the card, each under the JAX test's tolerance;
-  and ``cli grad-check`` on a box with a committed PNG as image texture.
+  and ``cli grad-check`` on a box with a committed PNG as image texture;
+* the bench: ``python -m gi_raytracer_tpu_torch.bench --repeats 1`` in a
+  subprocess, which must exit 0 with its five metric lines (the root
+  bench.py's names and order, headline last), finite, from the card;
+* the distribution phase: two ranks spawned by ``parallel.mesh.run_ranks``
+  share the card over gloo and run the main path split between them: the
+  750,000-slot photon pass by slots (``trace_photons_sharded``), the
+  512x512 render by rows (``render_fused_sharded``) and the train step by
+  rays (``train_step_sharded``), with K1, K2 and K3 launches counted in
+  each rank; against the single process (photon pass with ``ray_chunk``
+  375,000): stored mask equal, positions and colours within rtol 1e-6,
+  image max error under 1e-5 with the ray count equal, loss and updated
+  parameters within rel 1e-5.
 
 K1 is also held, on adaptive renders of the mesh Cornell box (8 to 32 spp,
 with and without the map), to the same render with block compaction off:
@@ -62,9 +74,9 @@ box (its feature table walked from shared memory) and of an
 from device memory), each with and without a photon map; K1's and K3's
 resources on the card are printed.
 Each render is timed after a warm-up render; one Cornell render with the
-map, one render of the largest terrain and one of the glass box, and the
-Cornell and glass photon passes, are then profiled (device ms per kernel
-and the device's busy share).
+map, one render of the largest terrain and one of the glass box, and one
+chunk (``ray_chunk`` slots) of the Cornell and glass photon passes, are
+then profiled (device ms per kernel and the device's busy share).
 Every phase prints its seconds; any failure raises, and the script exits
 non-zero.  It needs a CUDA device and never falls back to the CPU.
 
@@ -185,6 +197,21 @@ light 0 3 0 4 4 4 0.3
 camera 0 0 -3.5 0 0 0
 """
 GRAD_CLI_TEXTURE = os.path.join("docs", "validation", "cornell_ours.png")
+
+# the bench phase: the port's bench in a subprocess, one timed run a metric
+# after its warm-up; its five lines, in the root bench.py's order
+BENCH_METRICS = ["photons_emitted_per_s", "knn_gather_mphotons_per_s",
+                 "train_step_seconds",
+                 "rays_per_s_cornell_512_8spp_nophotons",
+                 "rays_per_s_cornell_512_8spp"]
+BENCH_REPEATS, BENCH_TIMEOUT = 1, 300
+# the distribution phase: two ranks sharing the card over gloo, the main
+# path's photon pass (PHOTONS / DIST_RANKS slots a rank), its render split
+# by rows, and the train step split by rays, each against the single
+# process (positions rtol 1e-6, image max error 1e-5, step rel 1e-5: the
+# loss, and each updated parameter in relative L2)
+DIST_RANKS, DIST_LR, DIST_TIMEOUT = 2, 0.05, 600
+DIST_POS_RTOL, DIST_IMG_ATOL, DIST_STEP_RTOL = 1e-6, 1e-5, 1e-5
 
 # the card's peak rates for the bound (H100 SXM datasheet)
 PEAK_FP32 = 67e12          # FP32 operations per second outside tensor cores
@@ -527,7 +554,6 @@ def grad_phase(dev, scene, cam, cfg, batch, drive):
     * ``cli grad-check`` once, on a box with a committed PNG as an image
       texture (the card host has no Pillow)."""
     import contextlib
-    import dataclasses
     import io as _io
     import shutil
 
@@ -535,34 +561,16 @@ def grad_phase(dev, scene, cam, cfg, batch, drive):
     from gi_raytracer_tpu_torch import cli, gradcheck
     from gi_raytracer_tpu_torch.config import RenderConfig
     from gi_raytracer_tpu_torch.ops import _cuda
-    from gi_raytracer_tpu_torch.render import Renderer
-    from gi_raytracer_tpu_torch.render.integrator import radiance_wave
-    from gi_raytracer_tpu_torch.render.photon import (PhotonBatch,
-                                                      build_photon_map)
     from gi_raytracer_tpu_torch.scene.scn import load_scene
+    from gi_raytracer_tpu_torch.train import TARGET, TrainStep
 
-    step_cfg = cfg.replace(min_samples=1, max_samples=1, max_depth=GRAD_DEPTH,
-                           integrator="staged")
-    small = PhotonBatch(*(t[:GRAD_PHOTONS] for t in batch))
-    pm = build_photon_map(small, scene.world_min.cpu().numpy(),
-                          scene.world_max.cpu().numpy())
-    ro, rd, sx, sy = Renderer(scene, cam, step_cfg, GRAD_SIZE,
-                              GRAD_SIZE).wave_inputs(0)
-    lane = torch.arange(ro.shape[0], device=dev)
+    require(TARGET == GRAD_TARGET, TARGET)
+    step = TrainStep(scene, cam, cfg, batch, GRAD_SIZE, GRAD_DEPTH,
+                     GRAD_PHOTONS)
+    pm = step.photon_map
     log(f"gradient step: {GRAD_SIZE}x{GRAD_SIZE} 1 spp depth {GRAD_DEPTH}, "
-        f"map of {int(small.stored.sum())} photons {pm.dims} window_cap "
+        f"map of {step.n_stored} photons {pm.dims} window_cap "
         f"{pm.window_cap}")
-
-    def step(plain=False):
-        pcol = pm.col.clone().requires_grad_(True)
-        lcol = scene.lights.col[0].clone().requires_grad_(True)
-        lit = dataclasses.replace(scene, lights=dataclasses.replace(
-            scene.lights, col=lcol.expand_as(scene.lights.col)))
-        c, _ = radiance_wave(lit, step_cfg, ro, rd, sx, sy, 0,
-                             dataclasses.replace(pm, col=pcol),
-                             lane_ids=lane, plain=plain)
-        loss = torch.mean((c - GRAD_TARGET) ** 2)
-        return (loss.detach(),) + torch.autograd.grad(loss, (pcol, lcol))
 
     with Phase("gradient step"):
         loss, g_pcol, g_lcol = drive("gradient step", step,
@@ -634,6 +642,147 @@ def grad_phase(dev, scene, cam, cfg, batch, drive):
         require(not any("error" in x for x in got.values()), "no errors")
         for name in ("light_col", "texture_col", "roughness", "ior"):
             require(got[f"grad_rel_err_{name}"]["pass"], name)
+
+
+def bench_phase():
+    """``python -m gi_raytracer_tpu_torch.bench`` in a subprocess: exit code
+    0 and the five metric lines, finite, from the card, headline last."""
+    import math
+    with Phase("bench"):
+        res = subprocess.run(
+            [sys.executable, "-m", "gi_raytracer_tpu_torch.bench",
+             "--repeats", str(BENCH_REPEATS)], cwd=HERE, capture_output=True,
+            text=True, timeout=BENCH_TIMEOUT)
+        for line in res.stdout.splitlines():
+            log(f"bench: {line}")
+        if res.returncode:
+            log(res.stderr[-6000:])
+        require(res.returncode == 0, ("bench exit code", res.returncode))
+        lines = [json.loads(x) for x in res.stdout.splitlines()]
+        require([x["metric"] for x in lines] == BENCH_METRICS,
+                [x["metric"] for x in lines])
+        for x in lines:
+            require(x["backend"] == "torch-cuda" and "error" not in x, x)
+            require(math.isfinite(x["value"]) and x["value"] > 0, x)
+
+
+def _dist_rank(mesh, cfg):
+    """One rank of the distribution phase (spawned): the main path's
+    photon pass split by slots, its 512x512 render by rows (a warm-up,
+    then a timed one), the train step by rays; every launch counted."""
+    import torch
+    from gi_raytracer_tpu_torch.ops import _cuda
+    from gi_raytracer_tpu_torch.parallel.mesh import (render_fused_sharded,
+                                                      train_step_sharded)
+    from gi_raytracer_tpu_torch.render import Camera, Renderer
+    from gi_raytracer_tpu_torch.render.photon import (build_photon_map,
+                                                      trace_photons_sharded)
+    from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
+    from gi_raytracer_tpu_torch.scene.cornell import (
+        CAMERA_LOOK_AT, CAMERA_POS, cornell_box)
+    from gi_raytracer_tpu_torch.train import TrainStep
+
+    scene = cornell_box(SceneBuilder, meshgen, full=True).build(
+        device=mesh.device)
+    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
+    _cuda.lib()
+    _cuda.reset_launches()
+    batch, t_ph = timed(lambda: trace_photons_sharded(scene, cfg, mesh))
+    pm = build_photon_map(batch, scene.world_min.cpu().numpy(),
+                          scene.world_max.cpu().numpy())
+    r = Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm)
+    render_fused_sharded(r, mesh)
+    st, t_r = timed(lambda: render_fused_sharded(r, mesh))
+    step = TrainStep(scene, cam, cfg, batch, GRAD_SIZE, GRAD_DEPTH,
+                     GRAD_PHOTONS)
+
+    def sgd():
+        return train_step_sharded(mesh, step.params(), step.build, step.cfg,
+                                  *step.inputs, step.target, lr=DIST_LR)
+
+    sgd()                                       # warm-up
+    (loss, new), t_s = timed(sgd)
+    torch.cuda.synchronize()
+    out = {"launches": {k: _cuda.launches[k] for k in _cuda.KERNELS},
+           "plain": {k: _cuda.plain_calls[k] for k in _cuda.KERNELS},
+           "seconds": {"photons": t_ph, "render": t_r, "train step": t_s},
+           "rays": float(st["rays"]), "blocks": r.wave_blocks,
+           "backend": mesh.backend, "device": str(mesh.device),
+           "loss": float(loss)}
+    if mesh.rank == 0:
+        out.update(stored=batch.stored.cpu(), pos=batch.pos.cpu(),
+                   col=batch.col.cpu(), mean=st["mean"].cpu(),
+                   new={k: v.cpu() for k, v in new.items()})
+    return out
+
+
+def dist_phase(dev, scene, cam, cfg, launches):
+    """The main path over DIST_RANKS ranks sharing the card (gloo): each
+    rank's K1, K2 and K3 launches counted and added to ``launches``; the
+    photon batch, the image and ray count, and the train step held to the
+    single process's with ``ray_chunk`` = PHOTONS / DIST_RANKS."""
+    import torch
+    from gi_raytracer_tpu_torch.parallel.mesh import run_ranks
+    from gi_raytracer_tpu_torch.render import Renderer
+    from gi_raytracer_tpu_torch.render.photon import (build_photon_map,
+                                                      trace_photons)
+    from gi_raytracer_tpu_torch.train import TrainStep
+
+    with Phase("distribution: two ranks on the card"):
+        outs = run_ranks(_dist_rank, DIST_RANKS, cfg, device="cuda",
+                         timeout=DIST_TIMEOUT)
+        for rank, o in enumerate(outs):
+            secs = {k: round(v, 4) for k, v in o["seconds"].items()}
+            log(f"rank {rank} of {DIST_RANKS} on {o['device']} over "
+                f"{o['backend']}: seconds {json.dumps(secs)}; render rays {o['rays']:.0f}; kernel launches "
+                f"{o['launches']} plain-version calls {o['plain']}")
+            require(o["backend"] == "gloo", o["backend"])
+            for k in ("megakernel", "intersect", "knn"):
+                require(o["launches"][k] > 0, (rank, k, o["launches"]))
+            require(o["launches"]["stream"] == 0, (rank, o["launches"]))
+            require(not any(o["plain"].values()), (rank, o["plain"]))
+            for k in launches:
+                launches[k] += o["launches"][k]
+        o = outs[0]
+    with Phase("distribution: the single process"):
+        one_cfg = cfg.replace(ray_chunk=PHOTONS // DIST_RANKS)
+        batch, t_ph = timed(lambda: trace_photons(scene, one_cfg))
+        stored = batch.stored.cpu()
+        require(torch.equal(o["stored"], stored), "stored masks equal")
+        pos_ok = torch.allclose(o["pos"][stored], batch.pos.cpu()[stored],
+                                rtol=DIST_POS_RTOL, atol=0)
+        col_ok = torch.allclose(o["col"][stored], batch.col.cpu()[stored],
+                                rtol=DIST_POS_RTOL, atol=0)
+        pm = build_photon_map(batch, scene.world_min.cpu().numpy(),
+                              scene.world_max.cpu().numpy())
+        r = Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm)
+        r.render()
+        (img, st), t_r = timed(lambda: r.render(return_state=True))
+        err = (o["mean"] - img.cpu()).abs().max().item()
+        step = TrainStep(scene, cam, cfg, batch, GRAD_SIZE, GRAD_DEPTH,
+                         GRAD_PHOTONS)
+        step.sgd(DIST_LR)                       # warm-up
+        (loss, new), t_s = timed(lambda: step.sgd(DIST_LR))
+        rel_loss = abs(o["loss"] - loss.item()) / abs(loss.item())
+        # relative L2 a parameter: a photon colour the step takes to about
+        # zero has no relative error of its own (and the gradients' sums
+        # are atomics, in no fixed order, in one process too)
+        rel = {k: ((o["new"][k] - v.cpu()).norm() / v.cpu().norm()).item()
+               for k, v in new.items()}
+        log(f"single process: photons {int(stored.sum())} stored in "
+            f"{t_ph:.3f} s, render {float(st['rays']):.0f} rays in "
+            f"{t_r:.4f} s, train step {t_s:.4f} s; sharded against it: "
+            f"stored equal, positions {'equal' if pos_ok else 'DIFFER'} "
+            f"(rtol {DIST_POS_RTOL}), colours "
+            f"{'equal' if col_ok else 'DIFFER'}; image max abs err "
+            f"{err:.3e}, rays {o['rays']:.0f}; loss rel err {rel_loss:.3e}, "
+            f"parameters rel L2 err {json.dumps(rel)}")
+        require(pos_ok and col_ok, "photon positions and colours")
+        require(err < DIST_IMG_ATOL, ("image", err))
+        require(o["rays"] == float(st["rays"]), (o["rays"], st["rays"]))
+        require(rel_loss <= DIST_STEP_RTOL, ("loss", rel_loss))
+        require(max(rel.values()) <= DIST_STEP_RTOL, ("parameters", rel))
+        require(torch.isfinite(img).all(), "finite image")
 
 
 def main(argv) -> int:
@@ -834,9 +983,13 @@ def main(argv) -> int:
             need=("intersect", "megakernel", "knn"), absent=("stream",))
     profile("Cornell render with the map",
             Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm).render)
+    # the profiles trace one chunk of a pass (its busy share is the
+    # pass's: every chunk runs the same rounds); a whole 750k pass under
+    # the profiler took 97 s once its draws became threefry's
     with Phase("Cornell photon pass profile"):
-        profile("Cornell photon pass", lambda: trace_photons(scene, cfg),
-                host=False)
+        profile("Cornell photon pass, one chunk",
+                lambda: trace_photons(scene, cfg.replace(
+                    photons=cfg.ray_chunk)), host=False)
 
     # ---- 4. kernels against their plain versions ------------------------
     with Phase("K2 intersect vs plain"):
@@ -1383,8 +1536,9 @@ def main(argv) -> int:
     save_png(r, img, "glass_256.png")
     profile(f"glass {glass.n_tris} render with the map", r.render)
     with Phase("glass photon pass profile"):
-        profile(f"glass {glass.n_tris} photon pass",
-                lambda: trace_photons(glass, glass_cfg), host=False)
+        profile(f"glass {glass.n_tris} photon pass, one chunk",
+                lambda: trace_photons(glass, glass_cfg.replace(
+                    photons=glass_cfg.ray_chunk)), host=False)
 
     del glass, r, img
 
@@ -1558,6 +1712,12 @@ def main(argv) -> int:
     # ---- 10. gradients: the train step, gradcheck, cli grad-check --------
     grad_phase(dev, scene, cam, cfg, cornell_batch, drive)
     del cornell_batch
+
+    # ---- 11. the bench, and the main path over two ranks ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_phase()
+    dist_phase(dev, scene, cam, cfg, launches)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

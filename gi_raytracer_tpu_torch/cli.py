@@ -1,13 +1,29 @@
-"""Command-line interface: the ``render`` and ``grad-check`` subcommands.
+"""Command-line interface: the ``render``, ``photons``, ``bench`` and
+``grad-check`` subcommands.
 
-Counterpart of ``gi_raytracer_tpu.cli render`` and ``grad-check``, with
-the same flags and output lines, plus ``--device`` (the card by default;
-``--device cpu`` runs every kernel's plain version):
+Counterpart of ``gi_raytracer_tpu.cli``, with the same flags and output
+lines, plus ``--device`` (the card by default; ``--device cpu`` runs every
+kernel's plain version):
 
   python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png
   python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png \\
       -W 128 -H 128 --photons 20000 --checkpoint ck.npz --resume
+  python -m gi_raytracer_tpu_torch.cli render scene.scn --devices 2
+  torchrun --nproc-per-node 2 -m gi_raytracer_tpu_torch.cli render \\
+      scene.scn --distributed
+  python -m gi_raytracer_tpu_torch.cli photons scene.scn
+  python -m gi_raytracer_tpu_torch.cli bench scene.scn --spp 8
   python -m gi_raytracer_tpu_torch.cli grad-check scene.scn -W 16
+
+``photons`` runs the photon pass alone and prints its ``[photons] stored/
+slots stored (s)`` line; ``bench`` times one fixed-spp render (after a
+warm-up render) and prints one ``primary_paths_per_s`` JSON line.
+
+``render --devices N`` spawns N local ranks (``parallel.mesh.run_ranks``)
+and ``render --distributed`` makes this process one rank of a group
+``torchrun`` started (``init_distributed``, ``env://``): the photon pass
+is split by slots and the render by image rows
+(``render_fused_sharded``), and rank 0 writes the PNG.
 
 ``grad-check`` prints one JSON line per gradient family of
 ``gradcheck.ALL_CHECKS`` (``grad_rel_err_<name>``: the analytic gradient
@@ -36,7 +52,7 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _build(args):
+def _build(args, echo=print):
     from .render import Camera
     from .scene.scn import load_scene
 
@@ -50,30 +66,86 @@ def _build(args):
     if args.photons is not None:
         cfg = cfg.replace(photons=args.photons)
     cam = Camera(pos=ls.camera_pos, look_at=ls.camera_look_at)
-    print(f"[scene] {ls.scene.n_tris} tris, {ls.scene.n_spheres} spheres, "
-          f"{ls.scene.lights.count} lights ({time.time() - t0:.2f}s)")
+    echo(f"[scene] {ls.scene.n_tris} tris, {ls.scene.n_spheres} spheres, "
+         f"{ls.scene.lights.count} lights ({time.time() - t0:.2f}s)")
     return ls, cfg, cam
 
 
-def _photon_map(ls, cfg):
-    from .render.photon import build_photon_map, trace_photons
+def _photon_map(ls, cfg, mesh=None, echo=print):
+    """The scene's photon map (None without photons or lights), over the
+    ranks of ``mesh`` where given; prints the ``[photons]`` line."""
+    from .render.photon import (build_photon_map, trace_photons,
+                                trace_photons_sharded)
 
     if cfg.photons <= 0 or ls.scene.lights.count == 0:
         return None
     t0 = time.time()
-    batch = trace_photons(ls.scene, cfg)
+    if mesh is not None:
+        count = cfg.photons - (cfg.photons % mesh.size)
+        batch = trace_photons_sharded(ls.scene, cfg, mesh, count=count)
+    else:
+        batch = trace_photons(ls.scene, cfg)
     stored = int(batch.stored.sum())
     pm = build_photon_map(batch, ls.scene.world_min.cpu().numpy(),
                           ls.scene.world_max.cpu().numpy())
-    print(f"[photons] {stored}/{batch.stored.shape[0]} stored "
-          f"({time.time() - t0:.2f}s)")
+    echo(f"[photons] {stored}/{batch.stored.shape[0]} stored "
+         f"({time.time() - t0:.2f}s)")
     return pm if stored else None
+
+
+def _render_rank(mesh, args):
+    """One rank of a sharded render: the scene on the rank's device, the
+    photon pass split by slots, the frame by rows.  Returns (the lines to
+    print, the tonemapped image) from rank 0, (None, None) elsewhere."""
+    from .render.integrator import Renderer
+    from .parallel.mesh import render_fused_sharded
+
+    lines = []
+    echo = lines.append if mesh.rank == 0 else (lambda _: None)
+    args.device = str(mesh.device)
+    ls, cfg, cam = _build(args, echo)
+    pm = (_photon_map(ls, cfg, mesh, echo) if not args.no_photons
+          else None)
+    r = Renderer(ls.scene, cam, cfg, args.width, args.height, photon_map=pm)
+    t0 = time.time()
+    st = render_fused_sharded(r, mesh)
+    img = r.tonemap(st["mean"])
+    _sync(mesh.device)
+    echo(f"[render] {time.time() - t0:.2f}s sharded over {mesh.size} "
+         f"devices ({float(st['rays']):.3g} rays, {mesh.backend})")
+    if mesh.rank:
+        return None, None
+    return lines, img.cpu()
+
+
+def _render_sharded(args):
+    from .io import save_png
+    from .parallel.mesh import init_distributed, run_ranks
+
+    if args.distributed:
+        import torch.distributed as dist
+        try:
+            lines, img = _render_rank(init_distributed(device=args.device),
+                                      args)
+        finally:
+            dist.destroy_process_group()
+    else:
+        lines, img = run_ranks(_render_rank, args.devices, args,
+                               device=args.device)[0]
+    if img is None:         # ranks past 0 of a --distributed group
+        return
+    for line in lines:
+        print(line)
+    save_png(args.output, img)
+    print(f"[out] {args.output}")
 
 
 def cmd_render(args):
     from .io import load_checkpoint, save_checkpoint, save_png
     from .render.integrator import Renderer
 
+    if args.devices > 1 or args.distributed:
+        return _render_sharded(args)
     ls, cfg, cam = _build(args)
     pm = _photon_map(ls, cfg) if not args.no_photons else None
     r = Renderer(ls.scene, cam, cfg, args.width, args.height, photon_map=pm)
@@ -123,6 +195,34 @@ def cmd_render(args):
     print(f"[out] {args.output}")
 
 
+def cmd_photons(args):
+    ls, cfg, cam = _build(args)
+    _photon_map(ls, cfg)
+
+
+def cmd_bench(args):
+    """A timed fixed-spp render (after a warm-up render): one JSON line."""
+    from .render.integrator import Renderer
+
+    ls, cfg, cam = _build(args)
+    cfg = cfg.replace(adaptive=False, min_samples=args.spp or 8,
+                      max_samples=args.spp or 8)
+    pm = _photon_map(ls, cfg) if not args.no_photons else None
+    r = Renderer(ls.scene, cam, cfg, args.width, args.height, photon_map=pm)
+    r.render()                  # warm-up
+    _sync(r.device)
+    t0 = time.time()
+    r.render()
+    _sync(r.device)
+    dt = time.time() - t0
+    spp = cfg.max_samples
+    primary = args.width * args.height * spp
+    print(json.dumps({"metric": "primary_paths_per_s",
+                      "value": primary / dt, "unit": "paths/s",
+                      "seconds": dt, "spp": spp,
+                      "size": [args.width, args.height]}))
+
+
 def cmd_grad_check(args):
     """Validate the renderer's gradients against central finite
     differences for every parameter family of ``gradcheck.ALL_CHECKS``;
@@ -152,7 +252,8 @@ def cmd_grad_check(args):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="gi_raytracer_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    for name, fn in (("render", cmd_render), ("grad-check", cmd_grad_check)):
+    for name, fn in (("render", cmd_render), ("photons", cmd_photons),
+                     ("bench", cmd_bench), ("grad-check", cmd_grad_check)):
         sp = sub.add_parser(name)
         sp.add_argument("scene")
         sp.add_argument("-o", "--output", default="render.png")
@@ -163,6 +264,12 @@ def main(argv=None):
         sp.add_argument("--max-depth", type=int, default=0)
         sp.add_argument("--photons", type=int, default=None)
         sp.add_argument("--no-photons", action="store_true")
+        sp.add_argument("--devices", type=int, default=1,
+                        help="render: split photons and rows over N local "
+                             "ranks")
+        sp.add_argument("--distributed", action="store_true",
+                        help="render: one rank of a torchrun group "
+                             "(env://); the mesh spans every rank")
         sp.add_argument("--preview", default=None, metavar="PNG",
                         help="write a tonemapped preview after every wave")
         sp.add_argument("--checkpoint", default=None, metavar="NPZ",

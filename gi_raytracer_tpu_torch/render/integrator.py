@@ -23,8 +23,14 @@ Counterpart of ``gi_raytracer_tpu.render.integrator``:
 * In a fog scene every bounce marches the fog after the closest hit
   (``atmosphere.fog_override``) and every shadow ray through it
   (``atmosphere.fog_occludes``).
-
-PRNG bounce dims past Halton's 256 (depth > 127) are not ported.
+* Bounce dims past Halton's 256 (depth > 127) draw from the threefry
+  streams ``stream(key, DEEP_DIM_X | DEEP_DIM_Y, depth)`` of the JAX
+  renderer, at JAX's default float width in the configuration its tests
+  pin (``jax_enable_x64``: float64), cast to the render's dtype.
+* ``Renderer(rows=(y0, y1))`` renders one band of the frame (a multiple
+  of 16 rows; the ranks of ``parallel.mesh.render_fused_sharded``): its
+  lanes keep the frame's lane ids, so a band's pixels equal the same
+  pixels of the whole frame's render.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..config import RenderConfig
 from ..ops import _cuda
 from ..ops.intersect import trace_closest_rows, trace_any
 from ..sampling.halton import HaltonSampler, HaltonEnum, MAX_QMC_DIMS
+from ..sampling import rng
 from ..sampling.rng import Purpose, hash_u01
 from ..scene.types import derived
 from .atmosphere import fog_occludes, fog_override
@@ -226,11 +233,16 @@ class Renderer:
     """Frame renderer: one QMC wave per sample, the full frame or (adaptive
     renders) the 16x16 blocks still active.  ``block_compaction=False``
     traces the full frame on adaptive renders too (the same image, samples
-    and active masks; more rays), for comparisons."""
+    and active masks; more rays), for comparisons.
+
+    ``rows=(y0, y1)`` renders rows [y0, y1) of the width x height frame:
+    images and states are (y1 - y0, width), and lane ids, samples and
+    blocks are the frame's (y0 and y1 - y0 multiples of 16, or the band
+    the whole frame)."""
 
     def __init__(self, scene, camera: Camera, config: RenderConfig,
                  width: int, height: int, photon_map=None,
-                 block_compaction: bool = True):
+                 block_compaction: bool = True, rows=None):
         self.scene = scene
         self.camera = camera
         self.cfg = config
@@ -241,21 +253,35 @@ class Renderer:
         self.photon_map = photon_map
         hi = self.enum.increment * max(config.max_samples, 1)
         self._index_bits = max(int(hi - 1).bit_length(), 1)
-        # 16x16 pixel-block ray order: block-ordered position p traces
-        # raster pixel perm[p]
+        self._key = rng.PRNGKey(config.seed)
         B = 16
-        ids = np.arange(height * width).reshape(height, width)
+        y0, y1 = rows if rows is not None else (0, height)
+        if (y0, y1) != (0, height) and (y0 % B or (y1 - y0) % B
+                                        or not 0 <= y0 < y1 <= height):
+            raise ValueError(f"rows {(y0, y1)} of {height}: a band of "
+                             f"16-row blocks")
+        self.rows = (y0, y1)
+        self.band_height = y1 - y0
+        # the band's first lane: the frame's blocks above it hold y0*W
+        # lanes in block order
+        self._lane0 = y0 * width
+        # 16x16 pixel-block ray order: block-ordered position p traces
+        # band raster pixel perm[p]
+        Hb = self.band_height
+        ids = np.arange(Hb * width).reshape(Hb, width)
         blocks = [ids[y:y + B, x:x + B].ravel()
-                  for y in range(0, height, B) for x in range(0, width, B)]
+                  for y in range(0, Hb, B) for x in range(0, width, B)]
         self._perm = np.concatenate(blocks)
         self._inv_perm = np.argsort(self._perm).astype(np.int64)
         self._perm_t = torch.as_tensor(self._perm, device=self.device)
         self._inv_perm_t = torch.as_tensor(self._inv_perm, device=self.device)
         self._offsets_t = torch.as_tensor(
-            self.enum.offsets.astype(np.int64).ravel(), device=self.device)
+            self.enum.offsets[y0:y1].astype(np.int64).ravel(),
+            device=self.device)
+        self.block_compaction = block_compaction
         self.block_adaptive = (block_compaction and config.adaptive
                                and config.max_samples > config.min_samples
-                               and height % B == 0 and width % B == 0)
+                               and Hb % B == 0 and width % B == 0)
         # blocks traced by each wave of the last render (block-adaptive)
         self.wave_blocks: list = []
 
@@ -270,17 +296,24 @@ class Renderer:
                        lambda: build_prim_rows(self.scene))
 
     def _bounce_samples(self, idx_flat):
-        """(D, R) QMC pairs for every bounce: dims 2+2d and 3+2d."""
+        """(D, R) sample pairs for every bounce: Halton dims 2+2d and 3+2d,
+        and past the sampler's 256 dims the JAX renderer's threefry
+        streams (float64 draws of the whole lane count, as
+        ``jax.random.uniform(key, idx.shape)`` under x64)."""
         sx, sy = [], []
+        shape = tuple(idx_flat.shape)
         for d in range(self.cfg.max_depth):
-            dim_x, dim_y = 2 + 2 * d, 3 + 2 * d
-            if dim_y >= MAX_QMC_DIMS:
-                raise NotImplementedError(
-                    "bounces past Halton's 256 dims (depth > 127) draw from "
-                    "a threefry PRNG stream the port does not carry")
-            sx.append(self.sampler.sample(dim_x, idx_flat, self._index_bits))
-            sy.append(self.sampler.sample(dim_y, idx_flat, self._index_bits))
-        return torch.stack(sx).to(self.dtype), torch.stack(sy).to(self.dtype)
+            for dim, purpose, acc in ((2 + 2 * d, Purpose.DEEP_DIM_X, sx),
+                                      (3 + 2 * d, Purpose.DEEP_DIM_Y, sy)):
+                if dim < MAX_QMC_DIMS:
+                    acc.append(self.sampler.sample(dim, idx_flat,
+                                                   self._index_bits)
+                               .to(self.dtype))
+                else:
+                    acc.append(rng.uniform(
+                        rng.stream(self._key, purpose, d), shape,
+                        torch.float64, idx_flat.device).to(self.dtype))
+        return torch.stack(sx), torch.stack(sy)
 
     def wave_inputs(self, wave: int, pos=None):
         """Block-ordered (ro, rd, sx_all, sy_all) of wave ``wave``: the full
@@ -318,43 +351,48 @@ class Renderer:
         return out[self._inv_perm_t]
 
     def wave_radiance(self, wave: int):
-        """One full-frame wave -> ((H, W, 3) raster radiance, ray count)."""
+        """One wave of the band -> ((Hb, W, 3) raster radiance, ray
+        count)."""
         N = self.width * self.height
         ro, rd, sx_all, sy_all = self.wave_inputs(wave)
         out, (n_c, n_s) = dispatch_wave(
             self.scene, self.cfg, ro, rd, sx_all, sy_all, 0, self.photon_map,
-            lane_base=wave * N, prim_rows=self.prim_rows())
-        c = out[self._inv_perm_t].reshape(self.height, self.width, 3)
+            lane_base=wave * N + self._lane0, prim_rows=self.prim_rows())
+        c = out[self._inv_perm_t].reshape(self.band_height, self.width, 3)
         return c, n_c + n_s
 
     def active_blocks(self, active):
-        """Block-major indices of the 16x16 blocks of ``active`` (H, W)
-        that hold an active pixel."""
-        H, W = self.height, self.width
+        """Block-major indices (in the band) of the 16x16 blocks of
+        ``active`` (Hb, W) that hold an active pixel."""
+        H, W = self.band_height, self.width
         act = active.reshape(H // 16, 16, W // 16, 16).any(3).any(1)
         return torch.nonzero(act.reshape(-1)).squeeze(1)
 
     def block_wave(self, wave: int, blocks):
-        """One wave over the 16x16 blocks ``blocks`` (block-major indices)
-        as one dispatch.  Block b's lane j has lane id wave*N + b*256 + j,
-        as in the full frame.  Returns ((H, W, 3) raster radiance, zero
-        outside those blocks; the ray count of the traced lanes)."""
-        H, W = self.height, self.width
-        N = H * W
+        """One wave over the band's 16x16 blocks ``blocks`` (block-major
+        indices) as one dispatch.  Block b's lane j has lane id wave*N +
+        lane0 + b*256 + j, as in the full frame.  Returns ((Hb, W, 3)
+        raster radiance, zero outside those blocks; the ray count of the
+        traced lanes)."""
+        H, W = self.band_height, self.width
+        Nb = H * W
         pos = (blocks[:, None] * 256
                + torch.arange(256, device=self.device)[None, :]).reshape(-1)
+        c = torch.zeros((Nb, 3), dtype=self.dtype, device=self.device)
+        if pos.numel() == 0:        # a quiet band traces nothing
+            return (c.reshape(H, W, 3),
+                    torch.zeros((), dtype=torch.int64, device=self.device))
         ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos)
         out, (n_c, n_s) = dispatch_wave(
             self.scene, self.cfg, ro, rd, sx_all, sy_all, 0, self.photon_map,
-            lane_ids=(wave * N + pos) & 0xFFFFFFFF,
-            prim_rows=self.prim_rows())
-        c = torch.zeros((N, 3), dtype=out.dtype, device=self.device)
-        c[pos] = out
+            lane_ids=(wave * self.width * self.height + self._lane0 + pos)
+            & 0xFFFFFFFF, prim_rows=self.prim_rows())
+        c[pos] = out.to(c.dtype)
         return c[self._inv_perm_t].reshape(H, W, 3), n_c + n_s
 
     def state0(self):
         """Fresh accumulation state (running mean starts at 0.5)."""
-        H, W = self.height, self.width
+        H, W = self.band_height, self.width
         dev = self.device
         return {
             "mean": torch.full((H, W, 3), 0.5, dtype=self.dtype, device=dev),
@@ -389,31 +427,53 @@ class Renderer:
         ``on_wave(state, wave)`` is called after every wave with the whole
         accumulation state, which can be saved and passed back as
         ``state=`` to resume the render (the checkpoint hook)."""
+        st = self.start(state)
+        for s in range(int(st["wave"]), self.cfg.max_samples):
+            if not bool(st["active"].any()):
+                break
+            st = self.step(st, s)
+            if verbose:
+                print(f"wave {s}: active {int(st['active'].sum())}/"
+                      f"{st['active'].numel()}")
+            if on_wave is not None:
+                on_wave(st, s)
+        return (st["mean"], st) if return_state else st["mean"]
+
+    def start(self, state=None):
+        """The state a render starts from (``state0`` or ``state``, with a
+        ray counter), and an empty ``wave_blocks`` record."""
         st = state if state is not None else self.state0()
         if "rays" not in st:    # resume from an old checkpoint
             st = dict(st, rays=torch.zeros((), dtype=torch.float32,
                                            device=self.device))
         self.wave_blocks = []
-        H, W = self.height, self.width
-        for s in range(int(st["wave"]), self.cfg.max_samples):
-            if not bool(st["active"].any()):
-                break
-            if self.block_adaptive:
-                blocks = self.active_blocks(st["active"])
-                c, rays = self.block_wave(s, blocks)
-                self.wave_blocks.append(blocks.numel())
-            else:
-                c, rays = self.wave_radiance(s)
-            st = self._accumulate(st, c, s)
-            st["rays"] = st["rays"] + rays.to(torch.float32)
-            if verbose:
-                print(f"wave {s}: active {int(st['active'].sum())}/{H * W}")
-            if on_wave is not None:
-                on_wave(st, s)
-        return (st["mean"], st) if return_state else st["mean"]
+        return st
+
+    def step(self, st, s: int, reduce_rays=None):
+        """Wave ``s`` of a render: trace the band (or its active blocks)
+        and fold it into the state.  ``reduce_rays(n)`` turns the wave's
+        ray count into the one added to the counter (the ranks' sum, in a
+        sharded render)."""
+        if self.block_adaptive:
+            blocks = self.active_blocks(st["active"])
+            c, rays = self.block_wave(s, blocks)
+            self.wave_blocks.append(blocks.numel())
+        else:
+            c, rays = self.wave_radiance(s)
+        if reduce_rays is not None:
+            rays = reduce_rays(rays)
+        st = self._accumulate(st, c, s)
+        st["rays"] = st["rays"] + rays.to(torch.float32)
+        return st
 
     def tonemap(self, linear):
         """Gamma + clamp."""
         g = torch.pow(torch.clamp(linear, min=0.0), 1.0 / self.cfg.gamma)
         return torch.clamp(g, 0.0, 1.0)
 
+
+def render_image(scene, camera: Camera, config: RenderConfig, width: int,
+                 height: int, photon_map=None, verbose: bool = False):
+    """A whole render, tonemapped: (H, W, 3) in [0, 1]."""
+    r = Renderer(scene, camera, config, width, height, photon_map)
+    return r.tonemap(r.render(verbose=verbose))

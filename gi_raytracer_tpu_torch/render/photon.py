@@ -15,10 +15,15 @@ estimate (counterpart of ``gi_raytracer_tpu.render.photon``).
   the card); ``sample_photons`` is its plain version.
 
 Emission draws its direction and BSDF uniforms from a ``uniform(li, chunk,
-round, depth, shape)`` source.  The default draws from a ``torch.Generator``
-on the scene's device seeded with ``cfg.seed`` (Philox on the card), so it
-gives other bits than the JAX package's threefry streams; the parity tests
-pass a source that replays JAX's draws.
+round, depth, shape, dtype)`` source.  The default, ``ThreefryUniform``,
+draws the JAX package's threefry streams along its key path, so the port's
+photon batch equals the JAX package's slot for slot; the tests may pass
+another source (one that replays JAX's own draws).
+
+``trace_photons_sharded`` splits the slots over the ranks of a process
+group: rank r emits slots [r*per, (r+1)*per) as chunk r, and the batches
+are all-gathered, so every rank holds the batch ``trace_photons`` gives
+with ``ray_chunk = per``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from ..config import RenderConfig
 from ..ops.intersect import trace_closest
+from ..sampling import rng
 from ..sampling.halton import HaltonSampler
 from .geom import normalize, random_unit_vec, sphere_cap_cos
 from .photon_knn import sample_photons_plain as sample_photons  # noqa: F401
@@ -73,17 +79,25 @@ class PhotonBatch(NamedTuple):
     stored: torch.Tensor
 
 
-class TorchUniform:
-    """Default emission uniforms: one ``torch.Generator`` on ``device``,
-    seeded once, drawn in call order."""
+class ThreefryUniform:
+    """Default emission uniforms: the JAX emission's threefry key path
+    (``fold_in(key, chunk)``, then ``fold_in(., round)``; the direction
+    from ``stream(., PHOTON_EMIT_X, li)``, a chain step's BSDF uniforms
+    from ``fold_in(stream(., PHOTON_ALPHA, li), depth)``), drawn on
+    ``device``.  A draw depends on its key alone, never on call order."""
 
     def __init__(self, seed: int, device):
+        self.key = rng.PRNGKey(seed)
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
 
-    def __call__(self, li, chunk, rnd, depth, shape):
-        return torch.rand(shape, generator=self.gen, device=self.device)
+    def __call__(self, li, chunk, rnd, depth, shape, dtype=torch.float32):
+        kr = rng.fold_in(rng.fold_in(self.key, chunk), rnd)
+        if depth < 0:
+            k = rng.stream(kr, rng.Purpose.PHOTON_EMIT_X, li)
+        else:
+            k = rng.fold_in(rng.stream(kr, rng.Purpose.PHOTON_ALPHA, li),
+                            depth)
+        return rng.uniform(k, shape, dtype, self.device)
 
 
 def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
@@ -104,7 +118,7 @@ def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
     surf = torch.where(langle < 1.0, cap, random_unit_vec(sx, sy))
     pos = lpos[None, :] + lrad * surf
 
-    u = uniform(li, chunk, rnd, -1, (2, R)).to(dt)
+    u = uniform(li, chunk, rnd, -1, (2, R), dt)
     emit_dir = sphere_cap_cos(normalize(pos - lpos[None, :]), u[0], u[1],
                               2.0, langle)
     col = torch.broadcast_to((0.5 * langle / total_count) * lcol,
@@ -126,7 +140,7 @@ def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
     ones = torch.ones((R, 3), dtype=dt, device=pos.device)
     for depth in range(cfg.photon_depth):
         salt = (salt0 + (depth + 1) * 7919) & 0xFFFFFFFF
-        uni = uniform(li, chunk, rnd, depth, (4, R)).to(dt)
+        uni = uniform(li, chunk, rnd, depth, (4, R), dt)
         hit = trace_closest(scene, ro, rd, salt=salt, eps=cfg.epsilon,
                             active=alive, ray_id=slot_ids)
         attrs = hit_attributes_uv(scene, ro, rd, hit.t, hit.prim, hit.u, hit.v)
@@ -179,6 +193,13 @@ def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
     return PhotonBatch(pos, dirs, col, stored)
 
 
+def _no_photons(scene) -> PhotonBatch:
+    """The batch of a scene without lights: one empty slot."""
+    z = torch.zeros((1, 3), dtype=scene.lights.pos.dtype, device=scene.device)
+    return PhotonBatch(z, z, z, torch.zeros(1, dtype=torch.bool,
+                                            device=scene.device))
+
+
 def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
                   uniform=None, differentiable: bool = False) -> PhotonBatch:
     """Emit ``count`` (default ``cfg.photons``) photon slots per light in
@@ -200,14 +221,10 @@ def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
 def _trace_photons(scene, cfg, sampler, count, uniform, differentiable):
     sampler = sampler or HaltonSampler()
     count = count or cfg.photons
-    uniform = uniform or TorchUniform(cfg.seed, scene.device)
+    uniform = uniform or ThreefryUniform(cfg.seed, scene.device)
     L = scene.lights.count
-    dt = scene.lights.pos.dtype
-    dev = scene.device
     if L == 0:
-        z = torch.zeros((1, 3), dtype=dt, device=dev)
-        return PhotonBatch(z, z, z, torch.zeros(1, dtype=torch.bool,
-                                                device=dev))
+        return _no_photons(scene)
     per_chunk = min(max(cfg.ray_chunk, 1), count)
     parts = []
     for li in range(L):
@@ -216,6 +233,35 @@ def _trace_photons(scene, cfg, sampler, count, uniform, differentiable):
             parts.append(_emit_chunk(scene, cfg, sampler, uniform,
                                      start // per_chunk, start, li, n, count,
                                      differentiable))
+    return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
+                         for f in PhotonBatch._fields))
+
+
+@torch.no_grad()
+def trace_photons_sharded(scene, cfg: RenderConfig, mesh, sampler=None,
+                          count=None, uniform=None) -> PhotonBatch:
+    """``trace_photons`` with the slots split over the ranks of ``mesh``
+    (``parallel.mesh.Mesh``): rank r emits slots [r*per, (r+1)*per) of
+    each light as chunk r (per = count / ranks), and the ranks' batches
+    are all-gathered, so every rank returns the batch ``trace_photons``
+    gives with ``cfg.ray_chunk = per``."""
+    from ..parallel.mesh import all_gather
+
+    sampler = sampler or HaltonSampler()
+    count = count or cfg.photons
+    uniform = uniform or ThreefryUniform(cfg.seed, scene.device)
+    L = scene.lights.count
+    if L == 0:
+        return _no_photons(scene)
+    if count % mesh.size:
+        raise ValueError(f"photon count {count} not divisible by "
+                         f"{mesh.size}")
+    per = count // mesh.size
+    parts = []
+    for li in range(L):
+        b = _emit_chunk(scene, cfg, sampler, uniform, mesh.rank,
+                        mesh.rank * per, li, per, count)
+        parts.append(PhotonBatch(*(all_gather(mesh, f) for f in b)))
     return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
                          for f in PhotonBatch._fields))
 

@@ -105,15 +105,35 @@ def _as_index(index) -> torch.Tensor:
     return index.to(torch.int64) & M32
 
 
+def scramble_permutations(scramble: str, seed=None) -> list:
+    """The digit permutation of every base up to the largest prime:
+    ``faure``; ``random`` (``numpy.random.default_rng(seed)`` shuffling
+    every base above 3 in turn, as the JAX package does, so the tables
+    are its tables); or ``none`` (the identity)."""
+    max_base = PRIMES[-1]
+    if scramble == "faure":
+        return faure_permutations(max_base)
+    if scramble == "random":
+        gen = np.random.default_rng(seed)
+        perms = [None] * (max_base + 1)
+        for b in range(1, max_base + 1):
+            p = np.arange(b, dtype=np.uint16)
+            if b > 3:
+                gen.shuffle(p)
+            perms[b] = p
+        return perms
+    if scramble == "none":
+        return [np.arange(b, dtype=np.uint16) for b in range(max_base + 1)]
+    raise ValueError(f"unknown scramble: {scramble}")
+
+
 class HaltonSampler:
     """``sample(dim, index)``: float32 samples in [0, 1) for a uint32
-    index tensor (held as int64), matching the reference's sampler."""
+    index tensor (held as int64), matching the reference's sampler with
+    the ``scramble`` digit permutations (``scramble_permutations``)."""
 
-    def __init__(self, scramble: str = "faure"):
-        if scramble != "faure":
-            raise NotImplementedError("only the Faure scramble is ported")
-        max_base = PRIMES[-1]
-        self._perms = faure_permutations(max_base)
+    def __init__(self, scramble: str = "faure", seed: int | None = None):
+        self._perms = scramble_permutations(scramble, seed)
         self._tables: dict[int, np.ndarray] = {}
         self._meta: dict[int, tuple] = {}
         for p in PRIMES[1:]:
@@ -213,6 +233,18 @@ class HaltonEnum:
         off = (hx[None, :] * np.uint64(self._mx)
                + hy[:, None] * np.uint64(self._my)) % np.uint64(self.increment)
         self.offsets = off.astype(np.uint32)  # (H, W)
+
+    @property
+    def max_samples_per_pixel(self) -> int:
+        return 0xFFFFFFFF // self.increment
+
+    def get_index(self, i, x, y) -> torch.Tensor:
+        """uint32 index (int64) of the i-th sample of pixel (x, y)."""
+        i, x, y = (torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                   else v).to(torch.int64) for v in (i, x, y))
+        off = torch.as_tensor(self.offsets.astype(np.int64),
+                              device=x.device)[y, x]
+        return (off + mul32(i.to(x.device) & M32, self.increment)) & M32
 
     def index_image(self, i, device=None) -> torch.Tensor:
         """(H, W) uint32 indices (int64) for sample wave ``i``."""

@@ -6,6 +6,12 @@ in an ``int64`` tensor in [0, 2**32) and every operation is reduced
 intermediate leaves the int64 range.  The result keeps the reference's
 top-24-bit -> int32 -> float32 conversion, so the CUDA kernels (which use
 native ``uint32``) and this module give the same bits.
+
+The threefry streams (``PRNGKey``, ``fold_in``, ``stream``, ``uniform``)
+are ``jax.random``'s, bit for bit, with ``jax_threefry_partitionable`` on
+(the default of JAX 0.5 and later) and 64-bit seeds (``jax_enable_x64``):
+a key is a pair of Python ints, and ``uniform`` draws on the device.  The
+threefry rounds are written once for Python ints and int64 tensors alike.
 """
 
 from __future__ import annotations
@@ -78,3 +84,77 @@ def bits_to_u01(h: torch.Tensor) -> torch.Tensor:
 def hash_u01(a, b, c=0) -> torch.Tensor:
     """Uniform in [0,1) from integer coordinates (vectorized, float32)."""
     return bits_to_u01(hash_bits(a, b, c))
+
+
+# ---- threefry-2x32 (jax.random's PRNG) ------------------------------------
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def threefry2x32(k0: int, k1: int, x0, x1):
+    """The threefry-2x32 block of key (k0, k1) on counters (x0, x1): Python
+    ints or int64 tensors holding uint32 values.  Returns the two output
+    words, as JAX's ``threefry2x32_p`` does (20 rounds, 5 key
+    injections)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> tuple:
+    """``jax.random.PRNGKey(seed)`` for a 64-bit seed: its high and low
+    words."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return (seed >> 32, seed & M32)
+
+
+def fold_in(key: tuple, data: int) -> tuple:
+    """``jax.random.fold_in``: the key's threefry block on (0, data)."""
+    return threefry2x32(key[0], key[1], 0, int(data) & M32)
+
+
+def stream(key: tuple, *ids: int) -> tuple:
+    """The key of a (wave, bounce, purpose, ...) tuple: one ``fold_in``
+    per id, as ``gi_raytracer_tpu.sampling.rng.stream``."""
+    for i in ids:
+        key = fold_in(key, i)
+    return key
+
+
+def uniform(key: tuple, shape, dtype=torch.float32,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype)`` in [0, 1) on ``device``.
+
+    The counters are the flat element index (the partitionable layout:
+    high word 0 below 2**32 elements).  float32 takes the xor of the two
+    output words and keeps its top 23 bits as the mantissa of a float in
+    [1, 2); float64 takes both words as one 64-bit value and keeps its top
+    52 bits."""
+    shape = tuple(shape)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    if n > M32:
+        raise ValueError(f"{n} draws: past the 32-bit counter")
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    if dtype == torch.float64:
+        mant = ((b0 << 20) | (b1 >> 12)) & ((1 << 52) - 1)
+        out = (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
+    elif dtype == torch.float32:
+        bits = ((b0 ^ b1) >> 9) | 0x3F800000
+        out = bits.to(torch.int32).view(torch.float32) - 1.0
+    else:
+        raise TypeError(f"uniform draws float32 or float64, not {dtype}")
+    return out.reshape(shape)

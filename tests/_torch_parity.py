@@ -111,14 +111,14 @@ def jax_uniform(seed):
     (, depth)."""
     key = jax.random.PRNGKey(seed)
 
-    def uniform(li, chunk, rnd, depth, shape):
+    def uniform(li, chunk, rnd, depth, shape, dtype=torch.float32):
         kr = jax.random.fold_in(jax.random.fold_in(key, chunk), rnd)
         if depth < 0:      # PHOTON_EMIT_X: the emission direction
             k = jax.random.fold_in(jax.random.fold_in(kr, 8), li)
         else:              # PHOTON_ALPHA: the chain's BSDF uniforms
             k = jax.random.fold_in(jax.random.fold_in(
                 jax.random.fold_in(kr, 10), li), depth)
-        return torch.from_numpy(np.array(
-            jax.random.uniform(k, shape, jnp.float32)))
+        jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+        return torch.from_numpy(np.array(jax.random.uniform(k, shape, jdt)))
 
     return uniform
