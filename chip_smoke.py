@@ -37,7 +37,11 @@ card at the paths' shapes:
 * the CLI: ``cli.main(["render", ...])`` on a scene with spheres, a cone
   and fog, 128x128 with 20,000 photon slots and a checkpoint, then again
   stopped after its first wave and resumed from that checkpoint: the PNG
-  must read back at 128x128x3 and the resumed image equal the first;
+  must read back at 128x128x3 and the resumed image equal the first; then
+  once more with ``--profile``, whose PNG must equal the first bit for
+  bit and whose torch.profiler trace must parse and hold one
+  ``gi_walk_kernel`` (K2) and one ``gi_knn_kernel`` (K3) kernel event for
+  each launch the counters saw inside the profiled region;
 * the gradient path (``grad_phase``): bench.py's train step, the mesh
   Cornell box at 256x256, 1 spp, depth 8 on the staged wave (K2 and K3
   forward, the kNN backward the plain estimator's VJP) with a map of the
@@ -95,6 +99,7 @@ the same code in processes that take turns on one card.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1708,6 +1713,57 @@ def main(argv) -> int:
             require(full.max() > 0.05, "CLI image not black")
             require((full == resumed).all(), "resumed render equals the "
                     "uninterrupted one")
+
+        # the same render under --profile: the same PNG, and a trace that
+        # holds every K2 and K3 launch the counters saw in the profiled
+        # region (the photon pass before it launches K2 untraced)
+        profiled = os.path.join(tmp, "profiled.png")
+        trace_dir = os.path.join(tmp, "trace")
+        region = {}
+        profiled_region = cli._profiled
+
+        @contextlib.contextmanager
+        def counted_region(*a, **kw):
+            before = dict(_cuda.launches)
+            with profiled_region(*a, **kw):
+                yield
+            region.update({k: _cuda.launches[k] - before.get(k, 0)
+                           for k in _cuda.KERNELS})
+
+        with Phase("CLI render --profile"):
+            cli._profiled = counted_region
+            try:
+                drive("CLI render --profile",
+                      lambda: cli.main(args + ["-o", profiled, "--profile",
+                                               trace_dir]),
+                      need=("intersect", "knn"),
+                      absent=("megakernel", "stream"))
+            finally:
+                cli._profiled = profiled_region
+            counted = {"gi_walk_kernel": region["intersect"],
+                       "gi_knn_kernel": region["knn"]}
+            with open(profiled, "rb") as f, open(png, "rb") as g:
+                require(f.read() == g.read(), "the profiled render's PNG "
+                        "equals the unprofiled one bit for bit")
+            traces = [n for n in os.listdir(trace_dir)
+                      if n.endswith(".pt.trace.json")]
+            require(len(traces) == 1, ("one trace", traces))
+            trace = os.path.join(trace_dir, traces[0])
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+            busy = sum(e["dur"] for e in events
+                       if e.get("cat") == "kernel") / 1e3
+            log(f"CLI --profile trace: {os.path.getsize(trace)} bytes, "
+                f"{len(events)} events, {len(kernels)} kernel events, "
+                f"kernel ms {busy:.1f}")
+            for name, n in counted.items():
+                seen = sum(name in k for k in kernels)
+                log(f"CLI --profile trace: {name} {seen} kernel events, "
+                    f"{n} launches counted in the profiled region")
+                require(0 < seen == n, ("kernel events in the trace", name,
+                                        seen, n))
+            del events, kernels
 
     # ---- 10. gradients: the train step, gradcheck, cli grad-check --------
     grad_phase(dev, scene, cam, cfg, cornell_batch, drive)

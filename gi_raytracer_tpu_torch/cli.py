@@ -8,6 +8,7 @@ kernel's plain version):
   python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png
   python -m gi_raytracer_tpu_torch.cli render scene.scn -o out.png \\
       -W 128 -H 128 --photons 20000 --checkpoint ck.npz --resume
+  python -m gi_raytracer_tpu_torch.cli render scene.scn --profile trace/
   python -m gi_raytracer_tpu_torch.cli render scene.scn --devices 2
   torchrun --nproc-per-node 2 -m gi_raytracer_tpu_torch.cli render \\
       scene.scn --distributed
@@ -33,11 +34,21 @@ against central finite differences, at max(16, min(W, 64)) pixels square).
 npz with a meta record of resolution, seed, sampling config and the scene
 file's hash); ``--resume`` continues from it and refuses one whose record
 differs.  ``--preview`` writes the tonemapped image after every wave.
+
+``render --profile DIR`` wraps the render and its tonemap (not the scene
+build or the photon pass) in ``torch.profiler`` and writes the trace to
+``DIR/<worker>.<ns>.pt.trace.json``, which TensorBoard's profiler plugin
+and ``chrome://tracing`` read: host ops, and on the card its kernels.
+It acts on the single-process render only (not with ``--devices`` or
+``--distributed``), as in the JAX package, and leaves the image, the
+ray count and the checkpoint as they are without it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
 import hashlib
 import json
 import os
@@ -50,6 +61,28 @@ import torch
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir, device):
+    """torch.profiler over the block, ended by a synchronize: host ops,
+    and on the card the kernels the block launched.  Prints the path of
+    the trace it writes to ``trace_dir``."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    worker = f"render_{os.getpid()}"
+    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
+            trace_dir, worker_name=worker)):
+        yield
+        _sync(device)
+    # the newest of this process's traces: the name ends in its time in ns
+    path = max(glob.glob(os.path.join(glob.escape(trace_dir),
+                                      f"{worker}.*.pt.trace.json")))
+    print(f"[profile] torch.profiler trace written to {path}")
 
 
 def _build(args, echo=print):
@@ -177,10 +210,13 @@ def cmd_render(args):
             print(f"[wave {s}] active {int(st['active'].sum())}")
 
     hook = on_wave if (args.preview or args.checkpoint) else None
+    region = (_profiled(args.profile, r.device) if args.profile
+              else contextlib.nullcontext())
     t0 = time.time()
-    img, st = r.render(verbose=args.verbose, on_wave=hook, state=state,
-                       return_state=True)
-    out = r.tonemap(img)
+    with region:
+        img, st = r.render(verbose=args.verbose, on_wave=hook, state=state,
+                           return_state=True)
+        out = r.tonemap(img)
     _sync(r.device)
     dt = time.time() - t0
     rays = float(st["rays"])
@@ -276,6 +312,10 @@ def main(argv=None):
                         help="save accumulation state after every wave")
         sp.add_argument("--resume", action="store_true",
                         help="resume from --checkpoint if it exists")
+        sp.add_argument("--profile", default=None, metavar="DIR",
+                        help="capture a torch.profiler trace of the render "
+                             "(render, single process: not with --devices "
+                             "or --distributed)")
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "plain versions)")

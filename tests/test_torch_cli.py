@@ -3,12 +3,18 @@ directive loads to the JAX loader's arrays; ``cli render --device cpu``
 writes a PNG that Pillow and ``io.load_png`` read back equal; a render
 resumed from a checkpoint taken after its first wave equals the
 uninterrupted render; a checkpoint whose meta record differs is
-refused."""
+refused; ``render --profile DIR`` writes one torch.profiler trace and the
+same PNG as without it; each subcommand takes the JAX CLI's options plus
+``--device``."""
+
+import json
+import re
 
 import numpy as np
 import pytest
 from PIL import Image
 
+from gi_raytracer_tpu import cli as jax_cli
 from gi_raytracer_tpu.config import RenderConfig as JaxConfig
 from gi_raytracer_tpu.scene.scn import load_scene as jax_load_scene
 from gi_raytracer_tpu_torch import cli
@@ -119,3 +125,49 @@ def test_cli_resume_equals_uninterrupted(scene_dir, monkeypatch, capsys):
                   str(scene_dir / "x.png"), "-W", "16", "-H", "16",
                   "--max-depth", "4", "--device", "cpu", "--no-photons",
                   "--checkpoint", str(ck), "--resume"])
+
+
+def _rays(log):
+    """The ray count of a ``[render]`` line."""
+    return re.search(r"\[render\] .* — (\S+) rays traced", log).group(1)
+
+
+def test_cli_render_profile_writes_a_trace(scene_dir, capsys):
+    plain, profiled = scene_dir / "plain.png", scene_dir / "profiled.png"
+    _render(scene_dir, plain, "--photons", "2000")
+    plain_log = capsys.readouterr().out
+    trace_dir = scene_dir / "trace"
+    _render(scene_dir, profiled, "--photons", "2000", "--profile",
+            str(trace_dir))
+    log = capsys.readouterr().out
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    assert f"[profile] torch.profiler trace written to {traces[0]}" in log
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert profiled.read_bytes() == plain.read_bytes()
+    assert _rays(log) == _rays(plain_log)
+
+
+def _option_strings(main, name, capsys):
+    """The option strings ``main([name, ..., "--help"])`` lists."""
+    with pytest.raises(SystemExit) as done:
+        main([name, "x", "--help"])
+    assert done.value.code == 0
+    opts = set()
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("  -"):          # an option's invocation
+            invocation = line.strip().split("  ")[0]
+            opts |= {part.split()[0] for part in invocation.split(", ")}
+    return opts
+
+
+@pytest.mark.parametrize("name", ["render", "photons", "bench",
+                                  "grad-check"])
+def test_cli_takes_the_jax_flags_plus_device(name, monkeypatch, capsys):
+    # the JAX CLI's main turns on jax's persistent compilation cache
+    # first; printing the help needs none of it
+    monkeypatch.setattr(jax_cli, "_enable_compile_cache", lambda: None)
+    want = _option_strings(jax_cli.main, name, capsys)
+    assert {"-o", "--output", "--resume", "--profile", "-v"} <= want
+    assert _option_strings(cli.main, name, capsys) == want | {"--device"}
