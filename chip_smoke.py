@@ -76,7 +76,13 @@ four lanes a resident thread, so its lane queue refills) of the Cornell
 box (its feature table walked from shared memory) and of an
 8,342-triangle glass box (a table past a block's shared memory, walked
 from device memory), each with and without a photon map; K1's and K3's
-resources on the card are printed.
+resources on the card are printed.  K3 is held against its plain version,
+the whole-window estimate, on the Cornell map (whose densest cells hold
+more than its window cap, 96) at the 65,536 primary hits and at the
+caustic queries of wave 0 of the render with the map, logging how far the
+cap reaches, and on a dense core with a near-coincident focus whose
+windows hold thousands of candidates; the render's caustic energy with
+the capped estimator (``knn_backend="jnp"``) is logged beside it.
 Each render is timed after a warm-up render; one Cornell render with the
 map, one render of the largest terrain and one of the glass box, and one
 chunk (``ray_chunk`` slots) of the Cornell and glass photon passes, are
@@ -126,8 +132,11 @@ BIG_SIZE, BIG_SPP, BIG_DEPTH = 256, 2, 3
 GLASS_SIZE, GLASS_SPP, GLASS_DEPTH = 256, 4, 8
 GLASS_PHOTONS = 250_000
 K4_RAYS = 16_384            # wave-0 primary rays, and as many random rays
-# K3 dense-focus check: core and background photons, queries
+# K3 dense-focus check: core and background photons, queries; a near-
+# coincident focus (photons, sigma) and queries inside it
 DENSE_CORE, DENSE_BACKGROUND, DENSE_QUERIES = 200_000, 50_000, 16_384
+DENSE_FOCUS, DENSE_FOCUS_SIGMA, DENSE_FOCUS_QUERIES = 20_000, 1e-4, 1_024
+KNN_BUDGET = 2048          # the JAX router's per-point window budget
 
 # gates of the kernel-against-plain comparisons (the fractions are of lanes)
 K2_PRIM_EQUAL = 0.999      # prim ids equal (FMA flips borderline accepts)
@@ -437,6 +446,112 @@ def k3_queries(scene, cfg, cam):
     require(ok.numel() == 65536, ok.numel())
     return ((ro[ok] + hit.t[ok, None] * rd[ok]).contiguous(),
             (-rd[ok]).contiguous())
+
+
+def k3_wave_queries(scene, cfg, cam, pm):
+    """The caustic queries K3 answers in wave 0 of a 512x512 Cornell render
+    with the map (K1's query records, compacted; one estimate a wave on
+    the card): (points, directions), recorded from the estimates."""
+    import torch
+    from gi_raytracer_tpu_torch.ops.cuda_megakernel import radiance_wave_mega
+    from gi_raytracer_tpu_torch.render import Renderer
+    from gi_raytracer_tpu_torch.render import photon_knn
+    ro, rd, sx, sy = Renderer(scene, cam, cfg, WIDTH, HEIGHT).wave_inputs(0)
+    lane = torch.arange(ro.shape[0], device=ro.device)
+    calls = []
+    estimate = photon_knn._estimate
+
+    def record(pm_, point, direction, k):
+        calls.append((point.clone(), direction.clone()))
+        return estimate(pm_, point, direction, k)
+
+    photon_knn._estimate = record
+    try:
+        radiance_wave_mega(scene, cfg, ro, rd, sx, sy, lane, 0, pm)
+    finally:
+        photon_knn._estimate = estimate
+    require(len(calls) > 0, "no caustic estimate in the wave")
+    return (torch.cat([c[0] for c in calls]).contiguous(),
+            torch.cat([c[1] for c in calls]).contiguous())
+
+
+def k3_window_stats(pm, pts):
+    """(stats, candidates a query) of the window cap on a map and its
+    queries: the densest cell, the share of stored photons in cells past
+    ``pm.window_cap`` and past the first ``window_cap`` of their cell, the
+    share of queries whose window holds such a cell, the largest window,
+    and the queries past KNN_BUDGET candidates (where the JAX router falls
+    back to its capped estimator; K3 counts the whole window)."""
+    import torch
+    from gi_raytracer_tpu_torch.render.photon_knn import _cells, _window
+    occ = pm.cell_start[1:] - pm.cell_start[:-1]
+    cap = int(pm.window_cap)
+    stored = max(int(occ.sum()), 1)
+    cand = torch.zeros(pts.shape[0], dtype=torch.int64, device=pts.device)
+    capped = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+    for start, end, dup in _window(pm, _cells(pm, pts)):
+        cnt = torch.where(dup, 0, end - start)
+        cand += cnt
+        capped |= cnt > cap
+    return dict(
+        densest_cell=int(occ.max()), window_cap=cap,
+        photons_in_cells_over_cap=int(occ[occ > cap].sum()) / stored,
+        photons_past_cap=int(torch.clamp(occ - cap, min=0).sum()) / stored,
+        queries=pts.shape[0],
+        queries_with_capped_cell=capped.float().mean().item(),
+        largest_window=int(cand.max()),
+        windows_past_budget=int((cand > KNN_BUDGET).sum())), cand
+
+
+def k3_bytes(pm, pts, k):
+    """(bytes, parts) K3 must move to answer these queries: each query's
+    point and direction read (24 bytes) and its estimate written (12);
+    for the queries short of the far sentinel, each distinct cell_start
+    entry of their windows (4), the position and valid flag of each
+    distinct photon in those cells (13), and the direction and colour of
+    each distinct photon within some query's r_k (24).  What the run's
+    data needs, not the whole map."""
+    import torch
+    from gi_raytracer_tpu_torch.render.photon_knn import (
+        FAR, _cells, _d2, _plain_blocks, _window_takes)
+    near = pts[:, 0] < FAR
+    nx, ny, nz = pm.dims
+    gi = _cells(pm, pts[near])
+    cids = []
+    for ox in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            for oz in (-1, 0, 1):
+                w = gi + torch.tensor([ox, oy, oz], device=pts.device)
+                inside = ((w >= 0) & (w < torch.tensor(
+                    pm.dims, device=pts.device))).all(1)
+                w = w[inside]
+                cids.append((w[:, 0] * ny + w[:, 1]) * nz + w[:, 2])
+    cells = torch.unique(torch.cat(cids))
+    entries = torch.unique(torch.cat([cells, cells + 1])).numel()
+    photons = int((pm.cell_start[cells + 1] - pm.cell_start[cells]).sum())
+    # the photons within r_k (d^2 <= the rank-th smallest, rank = min(k,
+    # found)), every block of candidates laid out as the plain version does
+    within = torch.zeros(pm.capacity, dtype=torch.bool, device=pts.device)
+    for ids in _plain_blocks(pm, pts, k):
+        start, _, take = _window_takes(pm, pts[ids])
+        end = torch.cumsum(take, 1)
+        n_got = end[:, -1]
+        m = torch.arange(int(n_got.max()), device=pts.device) \
+            .expand(ids.shape[0], -1).contiguous()
+        cell = torch.clamp(torch.searchsorted(end, m, right=True), max=26)
+        idx = torch.clamp(torch.gather(start, 1, cell) + m
+                          - torch.gather(end - take, 1, cell),
+                          0, pm.capacity - 1)
+        ok = (m < n_got[:, None]) & pm.valid[idx]
+        d2 = torch.where(ok, _d2(pm.pos[idx] - pts[ids][:, None, :]),
+                         torch.inf)
+        rank = torch.clamp(ok.sum(1), 1, k)
+        rk2 = torch.gather(torch.sort(d2, 1).values, 1, rank[:, None] - 1)
+        within[idx[ok & (d2 <= rk2)]] = True
+    parts = dict(queries=pts.shape[0], cell_start_entries=entries,
+                 window_photons=photons, photons_within_rk=int(within.sum()))
+    return (pts.shape[0] * (24 + 12) + entries * 4 + photons * 13
+            + parts["photons_within_rk"] * 24), parts
 
 
 def cornell_path(scene, cfg, cam):
@@ -858,10 +973,15 @@ def main(argv) -> int:
         with Phase("K3"):
             from gi_raytracer_tpu_torch.render.photon_knn import (
                 sample_photons_tiled)
-            pts, dirs = k3_queries(scene, cfg, cam)
-            ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K),
-                         20)
-            log(f"K3 on {pts.shape[0]} queries with the map: ms {ms:.4f}")
+            for label, (pts, dirs) in (
+                    ("primary hits", k3_queries(scene, cfg, cam)),
+                    ("wave 0 caustic queries",
+                     k3_wave_queries(scene, cfg, cam, pm))):
+                ms = cuda_ms(
+                    lambda: sample_photons_tiled(pm, pts, dirs, KNN_K), 20)
+                log(f"K3 on {pts.shape[0]} {label} with the map: ms "
+                    f"{ms:.4f}; window cap "
+                    f"{json.dumps(k3_window_stats(pm, pts)[0])}")
         log(nvidia_smi_line())
         return 0
 
@@ -874,9 +994,9 @@ def main(argv) -> int:
     from gi_raytracer_tpu_torch.render.geom import hemisphere_cos, normalize
     from gi_raytracer_tpu_torch.render.integrator import radiance_wave
     from gi_raytracer_tpu_torch.render.photon import (
-        PhotonBatch, build_photon_map, sample_photons, trace_photons)
+        PhotonBatch, build_photon_map, sample_photons_backend, trace_photons)
     from gi_raytracer_tpu_torch.render.photon_knn import (
-        _cells, _window, knn_info, sample_photons_tiled)
+        knn_info, sample_photons_plain, sample_photons_tiled)
     from gi_raytracer_tpu_torch.scene import terrain
     from gi_raytracer_tpu_torch.scene.cornell import (
         ANALYTIC_TRIS, GLASS_SUBDIVS, GLASS_TRIS)
@@ -1184,38 +1304,67 @@ def main(argv) -> int:
         del wave
 
     def knn_cost(pmap, pts):
-        """(FP32 operations, bytes) of a kNN estimate: d^2 of every window
-        candidate (each cell's first window_cap photons), the photon map
-        and the queries read once, the estimates written once."""
-        cand = torch.zeros(pts.shape[0], dtype=torch.int64, device=dev)
-        for start, end, dup in _window(pmap, _cells(pmap, pts)):
-            cand += torch.where(dup, 0, torch.clamp(end - start,
-                                                    max=pmap.window_cap))
-        nbytes = (pts.shape[0] * (12 + 12 + 12) + pmap.capacity * 37
-                  + pmap.cell_start.numel() * 4)
-        return int(cand.sum()) * OPS_PER_CANDIDATE, nbytes, cand
+        """(FP32 operations, bytes, byte parts, candidates a query, window
+        stats) of a kNN estimate: d^2 of every candidate of the whole
+        window; the bytes of ``k3_bytes``."""
+        stats, cand = k3_window_stats(pmap, pts)
+        nbytes, parts = k3_bytes(pmap, pts, KNN_K)
+        return (int(cand.sum()) * OPS_PER_CANDIDATE, nbytes, parts, cand,
+                stats)
 
     with Phase("K3 knn vs plain"):
-        pts, dirs = k3_queries(scene, cfg, cam)
-        got = sample_photons_tiled(pm, pts, dirs, KNN_K)
-        want = sample_photons(pm, pts, dirs, KNN_K)
-        err = (got - want).abs()
-        close = (err <= K3_ATOL + K3_RTOL * want.abs()).all(-1)
-        frac = close.float().mean().item()
-        nonzero = (want.abs().sum(-1) > 0).float().mean().item()
-        ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K), 20)
-        plain_ms = cuda_ms(lambda: sample_photons(pm, pts, dirs, KNN_K), 1)
-        ops, nbytes, _ = knn_cost(pm, pts)
-        b_ms, b_by = bound(ops, nbytes)
-        log(f"K3 queries {pts.shape[0]} nonzero {nonzero:.4f} close "
-            f"{frac:.6f} max abs err {err.max().item():.3e}")
-        log(f"K3 ms {ms:.4f} plain ms {plain_ms:.3f} bound ms {b_ms:.4f} "
-            f"({b_by}); window candidates mean "
-            f"{knn_cost(pm, pts)[2].float().mean().item():.2f}; resources "
-            f"{json.dumps(knn_info())}")
+        # two query sets on the Cornell map: the 65,536 primary hits of the
+        # earlier records, and the caustic queries K3 answers in wave 0 of
+        # the render with the map (the main path's shape, the row's)
+        sets = {"primary hits": k3_queries(scene, cfg, cam),
+                "wave 0 caustic queries": k3_wave_queries(scene, cfg, cam,
+                                                          pm)}
+        for label, (pts, dirs) in sets.items():
+            got = sample_photons_tiled(pm, pts, dirs, KNN_K)
+            want = sample_photons_plain(pm, pts, dirs, KNN_K)
+            err = (got - want).abs()
+            close = (err <= K3_ATOL + K3_RTOL * want.abs()).all(-1)
+            frac = close.float().mean().item()
+            nonzero = (want.abs().sum(-1) > 0).float().mean().item()
+            ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K),
+                         20)
+            plain_ms = cuda_ms(
+                lambda: sample_photons_plain(pm, pts, dirs, KNN_K), 1)
+            ops, nbytes, parts, cand, stats = knn_cost(pm, pts)
+            b_ms, b_by = bound(ops, nbytes)
+            capped = sample_photons_backend(pm, pts, dirs, KNN_K, "jnp")
+            log(f"K3 {label}: window cap {json.dumps(stats)}")
+            log(f"K3 {label}: queries {pts.shape[0]} nonzero {nonzero:.4f} "
+                f"close {frac:.6f} max abs err {err.max().item():.3e}")
+            log(f"K3 {label}: ms {ms:.4f} plain ms {plain_ms:.3f} bound ms "
+                f"{b_ms:.4f} ({b_by}; bytes {nbytes} from "
+                f"{json.dumps(parts)}); window candidates mean "
+                f"{cand.float().mean().item():.2f}")
+            log(f"K3 {label}: caustic energy (sum of the estimates) whole "
+                f"window {got.sum().item():.6e}, capped estimator "
+                f"(knn_backend jnp) {capped.sum().item():.6e}")
+            require(frac >= K3_CLOSE, (label, frac))
+            require(nonzero > 0.0, (label, nonzero))
+            del got, want, capped
+        log(f"K3 resources {json.dumps(knn_info())}")
         require(knn_info()["local_bytes"] == 0, knn_info())
-        require(frac >= K3_CLOSE, frac)
-        require(nonzero > 0.0, nonzero)
+        del sets, pts, dirs
+        # the Cornell render's caustic energy (with the map less without
+        # it: the map adds to the paths and changes none of them), whole
+        # window against the capped estimator; logged, not gated
+        energy = {}
+        for label, c, pmap in (("without map", cfg, None),
+                               ("whole window", cfg, pm),
+                               ("capped (jnp)",
+                                cfg.replace(knn_backend="jnp"), pm)):
+            img = Renderer(scene, cam, c, WIDTH, HEIGHT,
+                           photon_map=pmap).render()
+            energy[label] = img.double().sum().item()
+        base = energy.pop("without map")
+        log("Cornell render caustic energy (image sum with the map less "
+            "without it): " + ", ".join(
+                f"{k} {v - base:.6e}" for k, v in energy.items())
+            + f"; image sum without the map {base:.6e}")
         rows["knn"] = dict(
             name="knn", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/knn.cu",
@@ -1261,34 +1410,47 @@ def main(argv) -> int:
     del pm
 
     with Phase("K3 knn vs plain, dense focus"):
-        # a dense core in a sparse background, on a grid of ~90 photons a
-        # core cell whose window cap (256) never binds: windows from a few
-        # to ~2,400 candidates, every tier of photon_knn.py:71 _knn_kernel
+        # a dense core in a sparse background, about 90 photons a core
+        # cell: windows from a few to ~2,400 candidates, every tier of
+        # photon_knn.py:71 _knn_kernel; and a near-coincident focus that
+        # no grid splits, as at a caustic focus: the map's densest cell
+        # holds more than its window cap (96) and the focus's windows
+        # hold thousands of candidates
         g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        focus_at = torch.tensor([0.1, 0.05, -0.1], device=dev)
         pos = torch.cat([
             (torch.rand((DENSE_CORE, 3), generator=g, device=dev) - 0.5) * 0.5,
             (torch.rand((DENSE_BACKGROUND, 3), generator=g, device=dev)
-             - 0.5) * 2.0])
+             - 0.5) * 2.0,
+            focus_at + DENSE_FOCUS_SIGMA * torch.randn(
+                (DENSE_FOCUS, 3), generator=g, device=dev)])
         P = pos.shape[0]
         dmap = build_photon_map(PhotonBatch(
             pos, normalize(torch.randn((P, 3), generator=g, device=dev)),
             torch.rand((P, 3), generator=g, device=dev) * 1e-3,
             torch.ones(P, dtype=torch.bool, device=dev)),
-            (-1.0,) * 3, (1.0,) * 3, target_per_cell=1.78, window_cap=256)
-        q = (torch.rand((DENSE_QUERIES, 3), generator=g, device=dev)
-             - 0.5) * 0.7
-        qd = normalize(torch.randn((DENSE_QUERIES, 3), generator=g,
+            (-1.0,) * 3, (1.0,) * 3, target_per_cell=1.78,
+            max_cells=1 << 20)      # stops at the first grid, 53^3 cells
+        q = torch.cat([
+            (torch.rand((DENSE_QUERIES, 3), generator=g, device=dev) - 0.5)
+            * 0.7,
+            focus_at + 2 * DENSE_FOCUS_SIGMA * torch.randn(
+                (DENSE_FOCUS_QUERIES, 3), generator=g, device=dev)])
+        qd = normalize(torch.randn((q.shape[0], 3), generator=g,
                                    device=dev))
         got = sample_photons_tiled(dmap, q, qd, KNN_K)
-        want = sample_photons(dmap, q, qd, KNN_K)
-        _, _, cand = knn_cost(dmap, q)
-        occ = int((dmap.cell_start[1:] - dmap.cell_start[:-1]).max())
-        require(occ <= dmap.window_cap, (occ, dmap.window_cap))
+        want = sample_photons_plain(dmap, q, qd, KNN_K)
+        stats, cand = k3_window_stats(dmap, q)
+        occ = stats["densest_cell"]
+        require(occ > dmap.window_cap, (occ, dmap.window_cap))
         dense = cand > K3_DENSE_WINDOW
         close = ((got - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all(-1)
         tiers = [int(((cand > lo_) & (cand <= hi_)).sum())
-                 for lo_, hi_ in ((-1, 128), (128, 512), (512, 2048),
-                                  (2048, 1 << 30))]
+                 for lo_, hi_ in ((-1, 128), (128, 512), (512, KNN_BUDGET),
+                                  (KNN_BUDGET, 1 << 30))]
+        focus_ms = cuda_ms(lambda: sample_photons_tiled(dmap, q, qd, KNN_K), 5)
+        log(f"K3 dense focus: window cap {json.dumps(stats)}; K3 ms "
+            f"{focus_ms:.4f}")
         log(f"K3 dense focus: map dims {dmap.dims} densest cell {occ} "
             f"window_cap {dmap.window_cap}; queries {q.shape[0]}, windows "
             f"<=128 / <=512 / <=2048 / more: {tiers}; close "

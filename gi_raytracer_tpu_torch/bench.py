@@ -132,7 +132,8 @@ class Bench:
         dirs = -rd
         k = self.cfg.knn_k
         _, secs, all_secs = _timed(
-            lambda: sample_photons_backend(pm, pts, dirs, k), self.device,
+            lambda: sample_photons_backend(pm, pts, dirs, k,
+                                           self.cfg.knn_backend), self.device,
             self.args.repeats)
         R = pts.shape[0]
         return {"value": R * k / secs / 1e6, "unit": "Mphotons/s",

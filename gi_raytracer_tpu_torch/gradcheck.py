@@ -191,12 +191,13 @@ def check_camera(ls, size=16) -> GradReport:
 def check_light_color_through_photons(scene, cfg, uniform=None) -> GradReport:
     """d(caustic estimate)/d(light color) through the photon pipeline:
     ``trace_photons(differentiable=True)`` -> ``PhotonMap.rebind`` -> the
-    kNN estimate (its kernel forward on the card, the plain estimator's
-    VJP backward): where gradients die silently if any stage detaches its
-    inputs.  ``uniform`` is the emission's uniform source (default: the
-    port's seeded generator, drawn afresh on every pass)."""
-    from .render.photon import build_photon_map, trace_photons
-    from .render.photon_knn import sample_photons_tiled
+    kNN estimate ``cfg.knn_backend`` names (by default its kernel forward
+    on the card, the plain estimator's VJP backward): where gradients die
+    silently if any stage detaches its inputs.  ``uniform`` is the
+    emission's uniform source (default: the port's seeded generator, drawn
+    afresh on every pass)."""
+    from .render.photon import (build_photon_map, sample_photons_backend,
+                                trace_photons)
 
     cfg = cfg.replace(photon_retries=4)
     batch0 = trace_photons(scene, cfg, uniform=uniform)
@@ -211,8 +212,8 @@ def check_light_color_through_photons(scene, cfg, uniform=None) -> GradReport:
     def loss(lcol):
         s = replace(scene, lights=replace(scene.lights, col=lcol))
         batch = trace_photons(s, cfg, uniform=uniform, differentiable=True)
-        return torch.sum(sample_photons_tiled(pm0.rebind(batch), q, d,
-                                              cfg.knn_k))
+        return torch.sum(sample_photons_backend(pm0.rebind(batch), q, d,
+                                                cfg.knn_k, cfg.knn_backend))
 
     p0 = scene.lights.col
     picks = [(0, c) for c in range(3)]

@@ -11,8 +11,10 @@ estimate (counterpart of ``gi_raytracer_tpu.render.photon``).
 * The map is a uniform grid fitted to the stored photons, refined until the
   densest cell holds at most ``window_cap_max`` photons; photons are sorted
   by cell with a stable argsort and ``cell_start`` holds the cell ranges.
-* The estimate is ``photon_knn.sample_photons_tiled`` (the kNN kernel on
-  the card); ``sample_photons`` is its plain version.
+* The estimate is ``photon_knn.sample_photons_tiled``, the whole-window
+  estimate of the TPU kNN kernels (the kNN kernel on the card);
+  ``sample_photons`` is the JAX package's capped per-point estimator,
+  which ``knn_backend="jnp"`` names (``sample_photons_backend``).
 
 Emission draws its direction and BSDF uniforms from a ``uniform(li, chunk,
 round, depth, shape, dtype)`` source.  The default, ``ThreefryUniform``,
@@ -39,8 +41,8 @@ from ..ops.intersect import trace_closest
 from ..sampling import rng
 from ..sampling.halton import HaltonSampler
 from .geom import normalize, random_unit_vec, sphere_cap_cos
-from .photon_knn import sample_photons_plain as sample_photons  # noqa: F401
-from .photon_knn import sample_photons_tiled
+from .photon_knn import sample_photons_capped as sample_photons
+from .photon_knn import sample_photons_plain, sample_photons_tiled
 from .shading import hit_attributes_uv, material_lookup, secondary_ray
 
 
@@ -346,11 +348,29 @@ def build_photon_map(batch: PhotonBatch, world_min, world_max,
                      window_cap=window_cap)
 
 
+KNN_BACKENDS = ("auto", "pallas", "chunkrow", "jnp")
+
+
 def sample_photons_backend(pm: PhotonMap, point, direction, k,
                            backend: str = "auto", plain: bool = False):
-    """The caustic estimate: ``sample_photons_tiled`` (the kNN kernel on the
-    card, its plain version on the CPU); ``plain=True`` runs the plain
-    version on any device.  ``backend`` is accepted for config parity."""
-    if plain:
+    """The caustic estimate ``backend`` (``cfg.knn_backend``) names, as the
+    JAX package's ``photon.sample_photons_backend`` dispatches it:
+
+    * ``"auto"`` and ``"pallas"``: the whole-window estimate of the TPU kNN
+      kernels, ``sample_photons_tiled`` (the kNN kernel on CUDA tensors,
+      its plain version on CPU tensors: one function on both devices);
+    * ``"chunkrow"``: the same whole-window estimate.  JAX's chunk-row
+      path fetches a window as rows of 32 photons, at most 96 of them
+      (past that, the capped estimator), a budget of the TPU's layout that
+      the port does not keep (ROADMAP A.11);
+    * ``"jnp"``: ``sample_photons``, the capped per-point estimator, in
+      plain torch on any device, as JAX's ``"jnp"`` reaches no kernel.
+
+    ``plain=True`` runs the backend's plain version on any device."""
+    if backend not in KNN_BACKENDS:
+        raise ValueError(f"knn_backend {backend!r} not in {KNN_BACKENDS}")
+    if backend == "jnp":
         return sample_photons(pm, point, direction, k)
+    if plain:
+        return sample_photons_plain(pm, point, direction, k)
     return sample_photons_tiled(pm, point, direction, k)

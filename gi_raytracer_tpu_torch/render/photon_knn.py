@@ -1,14 +1,31 @@
 """kNN caustic estimate (K3): CUDA kernel wrapper + plain version.
 
-Counterpart of ``gi_raytracer_tpu.render.photon_knn.sample_photons_tiled``.
-Both compute the Jensen estimate of ``photon.sample_photons``: the query's
-clamped 3x3x3 cell window (at most ``window_cap`` photons per cell, the
-first in cell order), the k nearest photons, and
-sum(col * dot(dir, qdir)) / (pi * r_k^2), divided by the window's
-subsample rate got/true.  The kernel counts every photon with d^2 <= r_k^2
-(ties included), as the TPU tile kernels do; the plain version takes
-exactly the k nearest (lower window slot first on ties), as
-``photon.sample_photons`` does.  They differ only on exact distance ties.
+Counterpart of ``gi_raytracer_tpu.render.photon_knn.sample_photons_tiled``,
+the JAX package's accelerator estimate, whose TPU kernels
+(``_tile_kernel_small/_large`` and ``_knn_kernel``) count every photon of
+the query's window.  The estimator, for one query:
+
+* window: the query's clamped 3x3x3 cell window (clamp duplicates
+  skipped); every valid photon of those 27 cells is a candidate, with no
+  per-cell cap;
+* radius: r_k^2 is the k-th smallest d^2 when more than k candidates were
+  found, else the largest d^2;
+* estimate: sum(col * dot(dir, qdir)) / (pi * max(r_k^2, 1e-20)) over the
+  candidates within r_k, and exactly 0 for an empty window or a far
+  sentinel.
+
+The kernel counts every candidate with d^2 <= r_k^2 (ties included), as
+the TPU kernels do; the plain version (``sample_photons_plain``) takes
+exactly the k nearest (lower window slot first on ties).  They differ only
+on exact distance ties.  The JAX router sends a window past its VMEM
+budgets (2,048 candidates a query in ``_fwd_perpoint``, a tile's chunk
+rows in ``_fwd_impl``) to the capped per-point estimator; the port
+computes the whole window for every query (ROADMAP C.6).
+
+``sample_photons_capped`` is the port of ``photon.sample_photons``, the
+JAX package's per-point estimator, which the ``"jnp"`` backend names: at
+most ``window_cap`` photons a cell (the first in cell order), the k
+nearest, divided by the window's subsample rate got/true.
 
 The TPU tile machinery (Morton tiles, the chunk table, tile classes, pass 2
 and the chunk-row residual) is not ported: it exists for the TPU's layout.
@@ -17,13 +34,13 @@ resources on the card).
 
 Gradients: ``sample_photons_tiled`` is a ``torch.autograd.Function``
 whose forward is the kernel (the plain version on the CPU) and whose
-backward is the vector-Jacobian product of the plain estimator
-(``_block_estimate``) with respect to the query points and directions and
-the map's photon positions, directions and colours, recomputed lane chunk
-by lane chunk: the counterpart of the JAX custom VJP
-(``photon_knn._make_tiled_fn``), which differentiates a plain jnp
-estimator and reaches no TPU kernel.  The map's structure (cells, order,
-window cap) and the k-nearest selection are detached.
+backward is the vector-Jacobian product of the plain whole-window
+estimator (``_block_estimate``) with respect to the query points and
+directions and the map's photon positions, directions and colours,
+recomputed block by block: the gradient of the port's own forward.  (The
+JAX custom VJP differentiates its chunk-row path, which falls back to the
+capped estimator past 96 chunk rows of 32 photons.)  The map's structure
+(cells, order) and the k-nearest selection are detached.
 """
 
 from __future__ import annotations
@@ -40,6 +57,10 @@ from .geom import PI
 
 FAR = 1e29        # queries at or past this x are far sentinels (estimate 0)
 KMAX = 64         # the kernel's k bound (csrc/knn.cu)
+# a plain block's bounds: lanes, and candidate slots (lanes times the
+# block's largest window), which bound its (B, W) intermediates
+BLOCK_LANES = 32_768
+BLOCK_ENTRIES = 16_777_216
 
 
 def _cells(pm, point):
@@ -70,100 +91,141 @@ def _window(pm, gi):
     return out
 
 
-def _block_estimate(pm, point, direction, k):
-    """photon._sample_photons_block: (B, 3) estimates.  Every masked
-    branch that can hold inf or NaN (the distance of an invalid slot, the
-    photons of a slot past the k found, the radius of a lane that found
-    none) is scrubbed before the arithmetic, so that a gradient never
-    meets 0 * inf; the estimate is the same."""
-    R = point.shape[0]
-    cap = int(pm.window_cap)
-    gi = _cells(pm, point)
-    ar = torch.arange(cap, device=point.device)
-    idx_l, ok_l = [], []
-    n_true = torch.zeros(R, dtype=torch.int64, device=point.device)
-    n_got = torch.zeros_like(n_true)
-    for start, end, dup in _window(pm, gi):
-        cnt = torch.where(dup, 0, end - start)
-        n_true = n_true + cnt
-        n_got = n_got + torch.clamp(cnt, max=cap)
-        sl = start[:, None] + ar[None, :]
-        idx_l.append(torch.clamp(sl, 0, pm.capacity - 1))
-        ok_l.append((sl < end[:, None]) & ~dup[:, None])
-    idx = torch.cat(idx_l, 1)
-    ok = torch.cat(ok_l, 1) & pm.valid[idx]
-    dp = torch.where(ok[..., None], pm.pos[idx] - point[:, None, :], 0.0)
-    # (dx*dx + dy*dy) + dz*dz, the kernel's order
-    d2 = (dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1]) \
+def _window_takes(pm, point, cap=None):
+    """(start, count, take), each (R, 27) int64 in the window's cell order:
+    each cell's first photon, its photons (0 for a clamp duplicate) and
+    the candidates the estimate takes from it: all (``cap=None``) or the
+    first ``cap``."""
+    win = _window(pm, _cells(pm, point))
+    start = torch.stack([s for s, _, _ in win], 1)
+    cnt = torch.stack([torch.where(d, 0, e - s) for s, e, d in win], 1)
+    return start, cnt, (cnt if cap is None else torch.clamp(cnt, max=cap))
+
+
+def _d2(dp):
+    """(dx*dx + dy*dy) + dz*dz, the kernel's order."""
+    return (dp[..., 0] * dp[..., 0] + dp[..., 1] * dp[..., 1]) \
         + dp[..., 2] * dp[..., 2]
-    d2 = torch.where(ok, d2, torch.inf)
-    kk = min(k, d2.shape[1])
-    # a stable sort: among equal distances the lower candidate slot wins,
-    # as in jax.lax.top_k
-    top_d2, top_i = torch.sort(d2, dim=1, stable=True)
-    top_d2, top_i = top_d2[:, :kk], top_i[:, :kk]
-    found = torch.isfinite(top_d2)
+
+
+def _block_estimate(pm, point, direction, k, cap=None):
+    """(B, 3) estimates of one block of lanes: the whole window
+    (``cap=None``), or each cell's first ``cap`` photons divided by the
+    window's subsample rate got/true (``photon._sample_photons_block``).
+    A lane's candidates are its cells' takes laid end to end (window slot
+    m lies in the first cell whose running take passes m), padded to the
+    block's largest window and to at least k.  Every masked branch that
+    can hold inf or NaN (the distance of an invalid slot, the photons of
+    a slot past the k found, the radius of a lane that found none) is
+    scrubbed before the arithmetic, so that a gradient never meets
+    0 * inf; the estimate is the same."""
+    R = point.shape[0]
+    start, cnt, take = _window_takes(pm, point, cap)
+    end = torch.cumsum(take, 1)
+    n_got = end[:, -1]
+    width = max(int(n_got.max()), k)
+    m = torch.arange(width, device=point.device).expand(R, width) \
+        .contiguous()
+    cell = torch.clamp(torch.searchsorted(end, m, right=True), max=26)
+    ok = m < n_got[:, None]
+    # a slot past the window reads on past its lane's last cell: distinct
+    # photons, masked out, not one photon that a backward would scatter
+    # every padded slot's zero into
+    idx = torch.clamp(
+        torch.gather(start, 1, cell) + m - torch.gather(end - take, 1, cell),
+        0, pm.capacity - 1)
+    with torch.no_grad():
+        # which k are nearest: detached, so that no (B, W) intermediate is
+        # kept for a backward
+        ok = ok & pm.valid[idx]
+        dp = torch.where(ok[..., None], pm.pos[idx] - point[:, None, :], 0.0)
+        d2 = torch.where(ok, _d2(dp), torch.inf)
+        # a stable sort: among equal distances the lower candidate slot
+        # wins, as in jax.lax.top_k
+        top_d2, top_i = torch.sort(d2, dim=1, stable=True)
+        found = torch.isfinite(top_d2[:, :k])
     n_found = found.sum(1)
-    sel = torch.gather(idx, 1, top_i)
+    sel = torch.gather(idx, 1, top_i[:, :k])
     fs = found[:, :, None]
+    # the k nearest again, under autograd: the estimate depends on the
+    # photon positions and the point only through r_k^2
+    top_d2 = _d2(torch.where(fs, pm.pos[sel] - point[:, None, :], 0.0))
     w = torch.sum(torch.where(fs, pm.dir[sel], 0.0) * direction[:, None, :],
                   -1)
     contrib = torch.where(fs, pm.col[sel], 0.0) * w[:, :, None]
     total = contrib.sum(1)
-    kth = torch.clamp(n_found - 1, 0, kk - 1)
+    kth = torch.clamp(n_found - 1, 0, k - 1)
     has = n_found > 0
     max_d2 = torch.where(has, torch.gather(top_d2, 1, kth[:, None])[:, 0],
                          1.0)
     denom = torch.where(has, PI * torch.clamp(max_d2, min=1e-20), 1.0)
     est = torch.where(has[:, None], total / denom[:, None], 0.0)
+    if cap is None:
+        return est
     dt = point.dtype
+    n_true = cnt.sum(1)
     p_rate = torch.where(n_true > 0,
                          n_got.to(dt) / torch.clamp(n_true, min=1).to(dt), 1.0)
     return est / torch.clamp(p_rate, min=1e-6)[:, None]
 
 
-def _live_lanes(pm, point):
-    """Lanes whose window holds a photon and that are no far sentinel (the
-    others' estimate is exactly 0)."""
-    gi = _cells(pm, point)
-    occ = torch.zeros(point.shape[0], dtype=torch.int64, device=point.device)
-    for start, end, _ in _window(pm, gi):
-        occ = occ + (end - start)
-    return torch.nonzero((occ > 0) & (point[:, 0] < FAR)).squeeze(1)
+def _plain_blocks(pm, point, k, cap=None, lane_chunk=None):
+    """The lanes a plain estimate computes, as a list of index blocks.
+    Lanes whose window is empty, and far-sentinel lanes, estimate exactly
+    0 and are left out; the rest, sorted by window size, fill blocks of at
+    most ``lane_chunk`` (default BLOCK_LANES) lanes and BLOCK_ENTRIES
+    candidate slots, so that one focal window pads no block of small
+    ones."""
+    n = _window_takes(pm, point, cap)[2].sum(1)
+    live = torch.nonzero((n > 0) & (point[:, 0] < FAR)).squeeze(1)
+    n, order = torch.sort(n[live], stable=True)
+    live = live[order]
+    width = np.maximum(n.cpu().numpy(), k)
+    lanes = lane_chunk or BLOCK_LANES
+    blocks, s = [], 0
+    while s < width.shape[0]:
+        w = width[s:s + lanes]
+        # w ascends, so a block of b lanes holds b * w[b - 1] slots
+        fit = np.searchsorted(np.arange(1, w.shape[0] + 1) * w,
+                              BLOCK_ENTRIES, side="right")
+        blocks.append(live[s:s + max(int(fit), 1)])
+        s += blocks[-1].shape[0]
+    return blocks
 
 
-def _lane_chunk(pm) -> int:
-    """Lanes per block: bounds the (B, 27*cap) candidate intermediates to
-    about 16M entries."""
-    window = 27 * max(int(pm.window_cap), 1)
-    return int(np.clip(2 ** int(np.log2(max(16_777_216 // window, 1024))),
-                       1024, 32768))
-
-
-def sample_photons_plain(pm, point, direction, k, lane_chunk=None):
-    """Port of ``photon.sample_photons`` (the per-point reference
-    estimator).  Lanes whose window is empty, and far-sentinel lanes,
-    return exactly 0 and are compacted out before the gather; the rest run
-    in lane blocks that bound the (B, 27*cap) candidate intermediates."""
-    _cuda.plain_calls["knn"] += 1
-    R = point.shape[0]
-    out = torch.zeros((R, 3), dtype=point.dtype, device=point.device)
-    if R == 0:
+def _plain_estimate(pm, point, direction, k, cap, lane_chunk):
+    out = torch.zeros((point.shape[0], 3), dtype=point.dtype,
+                      device=point.device)
+    if point.shape[0] == 0:
         return out
-    live = _live_lanes(pm, point)
-    lane_chunk = lane_chunk or _lane_chunk(pm)
-    for s in range(0, live.shape[0], lane_chunk):
-        ids = live[s:s + lane_chunk]
-        out[ids] = _block_estimate(pm, point[ids], direction[ids], k)
+    for ids in _plain_blocks(pm, point, k, cap, lane_chunk):
+        out[ids] = _block_estimate(pm, point[ids], direction[ids], k, cap)
     return out
 
 
+def sample_photons_plain(pm, point, direction, k, lane_chunk=None):
+    """The plain version of K3: the whole-window estimate of the TPU kNN
+    kernels in torch, block by block (``_plain_blocks``)."""
+    _cuda.plain_calls["knn"] += 1
+    return _plain_estimate(pm, point, direction, k, None, lane_chunk)
+
+
+def sample_photons_capped(pm, point, direction, k, lane_chunk=None):
+    """Port of ``photon.sample_photons``, the JAX package's per-point
+    estimator (``knn_backend="jnp"``): at most ``pm.window_cap`` photons a
+    window cell, divided by the window's subsample rate got/true.  Plain
+    torch on any device."""
+    _cuda.plain_calls["knn"] += 1
+    return _plain_estimate(pm, point, direction, k, int(pm.window_cap),
+                           lane_chunk)
+
+
 def _estimate_vjp(pm, k, point, direction, grad, need):
-    """The VJP of the plain estimator: the gradients of
+    """The VJP of the plain whole-window estimator: the gradients of
     ``sum(grad * estimate)`` with respect to (point, direction, pm.pos,
     pm.dir, pm.col), each None where ``need`` says so.  It recomputes
-    ``_block_estimate`` lane chunk by lane chunk under grad mode and sums
-    the chunks' photon gradients, so at most one chunk's (B, 27*cap)
+    ``_block_estimate`` block by block (``_plain_blocks``) under grad mode
+    and sums the blocks' photon gradients, so at most one block's
     intermediates are alive; lanes the forward leaves at 0 (empty window,
     far sentinel) get a zero gradient."""
     R = point.shape[0]
@@ -177,11 +239,8 @@ def _estimate_vjp(pm, k, point, direction, grad, need):
         return (g_pt, g_dir, *g_ph)
     pm_d = dataclasses.replace(pm, pos=photons[0], dir=photons[1],
                                col=photons[2])
-    live = _live_lanes(pm, point)
-    B = _lane_chunk(pm)
     with torch.enable_grad():
-        for s in range(0, live.shape[0], B):
-            ids = live[s:s + B]
+        for ids in _plain_blocks(pm, point, k):
             p = point[ids].detach().requires_grad_(need[0])
             d = direction[ids].detach().requires_grad_(need[1])
             est = _block_estimate(pm_d, p, d, k)
@@ -225,8 +284,9 @@ class _KnnEstimate(torch.autograd.Function):
 
 
 def sample_photons_tiled(pm, point, direction, k):
-    """The caustic estimate of the render path: on CPU tensors the plain
-    version, on CUDA tensors the kNN kernel (``csrc/knn.cu``); gradients
+    """The caustic estimate of the render path, over the whole window: on
+    CPU tensors the plain version, on CUDA tensors the kNN kernel
+    (``csrc/knn.cu``), which raises rather than fall back; gradients
     flow to ``point``, ``direction`` and the map's ``pos``, ``dir`` and
     ``col`` through the plain estimator's VJP.  Where no gradient is
     wanted (the render path runs under ``torch.no_grad()``) the forward
@@ -292,7 +352,7 @@ def _knn_cuda(pm, point, direction, k):
     code = _cuda.lib().gi_knn_launch(
         q.data_ptr(), qd.data_ptr(), R, ppos.data_ptr(), pdir.data_ptr(),
         pcol.data_ptr(), pval.data_ptr(), cs.data_ptr(), nx, ny, nz,
-        g[0], g[1], g[2], iv[0], iv[1], iv[2], int(pm.window_cap), int(k),
+        g[0], g[1], g[2], iv[0], iv[1], iv[2], int(k),
         out.data_ptr(), _cuda.stream_ptr(q.device))
     _cuda.check(code, "gi_knn_launch")
     _cuda.launches["knn"] += 1

@@ -29,6 +29,7 @@ from gi_raytracer_tpu_torch.render.photon import (PhotonBatch,
                                                   trace_photons)
 from gi_raytracer_tpu_torch.render.photon_knn import (_cells, _window,
                                                      knn_info,
+                                                     sample_photons_plain,
                                                      sample_photons_tiled)
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
 from gi_raytracer_tpu_torch.scene.cornell import (cornell_box, CAMERA_POS,
@@ -249,7 +250,7 @@ def test_knn_kernel_matches_plain(dev):
     qd = normalize(torch.randn((8192, 3), generator=g, device=dev))
     q[:16] = 1e30                               # far sentinels estimate 0
     got = sample_photons_tiled(pm, q, qd, 32)
-    want = sample_photons(pm, q, qd, 32)
+    want = sample_photons_plain(pm, q, qd, 32)
     assert (got[:16] == 0).all()
     close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
     assert close.float().mean() >= 0.999
@@ -297,7 +298,7 @@ def test_knn_function_grads_with_kernel_forward_equal_plain(dev):
     n = _cuda.launches["knn"]
     got = grads(sample_photons_tiled)
     assert _cuda.launches["knn"] == n + 1
-    want = grads(sample_photons)
+    want = grads(sample_photons_plain)
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         scale = b.abs().max().item()
@@ -318,18 +319,13 @@ def test_knn_kernel_follows_an_in_place_map_update(dev):
 
 
 def _knn_ties_included(pm, q, qd, k):
-    """The kernel's estimate in plain torch: every window photon with
-    d^2 <= the k-th smallest d^2 counts, ties included (the plain
-    ``sample_photons`` takes exactly k)."""
-    cap = int(pm.window_cap)
-    ar = torch.arange(cap, device=q.device)
+    """The kernel's estimate in plain torch: every photon of the whole
+    window with d^2 <= the k-th smallest d^2 counts, ties included (the
+    plain ``sample_photons_plain`` takes exactly k)."""
+    occ = int((pm.cell_start[1:] - pm.cell_start[:-1]).max())
+    ar = torch.arange(occ, device=q.device)
     idx_l, ok_l = [], []
-    n_true = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
-    n_got = torch.zeros_like(n_true)
     for start, end, dup in _window(pm, _cells(pm, q)):
-        cnt = torch.where(dup, 0, end - start)
-        n_true += cnt
-        n_got += torch.clamp(cnt, max=cap)
         sl = start[:, None] + ar[None, :]
         idx_l.append(torch.clamp(sl, 0, pm.capacity - 1))
         ok_l.append((sl < end[:, None]) & ~dup[:, None])
@@ -347,8 +343,6 @@ def _knn_ties_included(pm, q, qd, k):
     total = torch.where(sel[..., None], pm.col[idx] * w[..., None], 0.0) \
         .sum(1)
     est = total / (torch.pi * torch.clamp(rk2, min=1e-20))
-    rate = torch.where(n_true > 0, n_got / torch.clamp(n_true, min=1), 1.0)
-    est = est / torch.clamp(rate, min=1e-6)[:, None]
     return torch.where((found > 0)[:, None], est, 0.0)
 
 
@@ -370,9 +364,48 @@ def test_knn_kernel_distance_ties(dev):
     close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
     assert close.float().mean() >= 0.999
     # the ties matter: the plain estimate (exactly k) differs on many
-    plain = sample_photons(pm, q, qd, 32)
+    plain = sample_photons_plain(pm, q, qd, 32)
     assert ((plain - want).abs() > 1e-6 + 2e-4 * want.abs()).any(-1) \
         .float().mean() > 0.05
+
+
+def _window_candidates(pm, q):
+    cand = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    for start, end, dup in _window(pm, _cells(pm, q)):
+        cand += torch.where(dup, 0, end - start)
+    return cand
+
+
+def test_knn_kernel_counts_the_whole_window_past_the_cap(dev):
+    """A near-coincident focus that no grid splits, as at a caustic's
+    focus: the densest cell holds more than the map's window cap (96) and
+    windows reach thousands of candidates.  The kernel counts every one,
+    as its plain version does; the capped estimator (``knn_backend="jnp"``)
+    differs there."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    pos = torch.cat([torch.randn((20_000, 3), generator=g, device=dev) * 1e-4,
+                     torch.rand((30_000, 3), generator=g, device=dev) * 2 - 1])
+    P = pos.shape[0]
+    up = torch.tensor([0.0, 0.0, 2.0], device=dev)
+    pm = build_photon_map(PhotonBatch(
+        pos, normalize(torch.randn((P, 3), generator=g, device=dev) + up),
+        torch.rand((P, 3), generator=g, device=dev),
+        torch.ones(P, dtype=torch.bool, device=dev)), (-1.0,) * 3, (1.0,) * 3)
+    assert int((pm.cell_start[1:] - pm.cell_start[:-1]).max()) \
+        > pm.window_cap
+    q = torch.cat([torch.randn((1024, 3), generator=g, device=dev) * 2e-4,
+                   torch.rand((3072, 3), generator=g, device=dev) * 2 - 1])
+    qd = normalize(torch.randn((4096, 3), generator=g, device=dev) + up)
+    focus = _window_candidates(pm, q) > 2048
+    assert focus.sum() >= 1000
+    got = sample_photons_tiled(pm, q, qd, 32)
+    want = sample_photons_plain(pm, q, qd, 32)
+    close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
+    assert close.float().mean() >= 0.999
+    assert close[focus].float().mean() >= 0.999
+    capped = sample_photons(pm, q, qd, 32)
+    assert ((capped - want).abs() > 1e-6 + 2e-4 * want.abs()).any(-1)[focus] \
+        .float().mean() > 0.5
 
 
 def test_knn_kernel_windows_past_the_register_store(dev):
@@ -386,16 +419,13 @@ def test_knn_kernel_windows_past_the_register_store(dev):
         pos, normalize(torch.randn((P, 3), generator=g, device=dev)),
         torch.rand((P, 3), generator=g, device=dev),
         torch.ones(P, dtype=torch.bool, device=dev)),
-        (-0.5,) * 3, (0.5,) * 3, target_per_cell=24.0, window_cap=256)
+        (-0.5,) * 3, (0.5,) * 3, target_per_cell=24.0)
     q = torch.rand((4096, 3), generator=g, device=dev) - 0.5
     qd = normalize(torch.randn((4096, 3), generator=g, device=dev))
-    cand = torch.zeros(4096, dtype=torch.int64, device=dev)
-    for start, end, dup in _window(pm, _cells(pm, q)):
-        cand += torch.where(dup, 0, torch.clamp(end - start,
-                                                max=pm.window_cap))
+    cand = _window_candidates(pm, q)
     assert (cand > knn_info()["register_candidates"]).float().mean() > 0.5
     got = sample_photons_tiled(pm, q, qd, 32)
-    want = sample_photons(pm, q, qd, 32)
+    want = sample_photons_plain(pm, q, qd, 32)
     close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
     assert close.float().mean() >= 0.999
     assert knn_info()["local_bytes"] == 0

@@ -1,14 +1,15 @@
 """Port parity of ``photon_knn.py:71`` ``_knn_kernel``: the JAX per-point
 kNN (``_fwd_perpoint``: exact ragged windows, tiers of <= 128, 512 and
-2,048 candidates, past 2,048 the reference estimator) in interpret mode,
-against the port's kNN plain version (``sample_photons``, which K3
-computes on the card) on one photon map and one set of queries.
+2,048 candidates, past 2,048 the capped reference estimator) in interpret
+mode, against the port's whole-window plain version
+(``sample_photons_plain``, which K3 computes on the card) on one photon
+map and one set of queries.
 
 The map is a dense core in a sparse background, on a grid whose densest
-cell holds fewer photons than the window cap, so the per-cell cap never
-binds and the two estimators are the same function up to distance ties.
-(Where a cell holds more than the cap, ``_knn_kernel`` counts the whole
-window while ``sample_photons`` and K3 subsample it: ROADMAP C.)"""
+cell holds fewer photons than the window cap, so that JAX's capped
+fallback past 2,048 candidates also counts the whole window and every
+tier is comparable.  (Where a cell holds more than the cap:
+tests/test_torch_knn_window.py.)"""
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,8 +18,8 @@ import torch
 from gi_raytracer_tpu.render.photon import (PhotonBatch as JaxBatch,
                                             build_photon_map as jax_build_map)
 from gi_raytracer_tpu.render.photon_knn import TIER_CAPS, _fwd_perpoint
-from gi_raytracer_tpu_torch.render.photon import sample_photons
-from gi_raytracer_tpu_torch.render.photon_knn import _cells, _window
+from gi_raytracer_tpu_torch.render.photon_knn import (_cells, _window,
+                                                      sample_photons_plain)
 
 from _torch_parity import port_map
 
@@ -57,7 +58,7 @@ def test_perpoint_knn_matches_port_plain_in_every_tier():
 
     want = np.asarray(_fwd_perpoint(jpm, jnp.asarray(q), jnp.asarray(qd), K,
                                     interpret=True))
-    got = sample_photons(tpm, tq, torch.from_numpy(qd), K).numpy()
+    got = sample_photons_plain(tpm, tq, torch.from_numpy(qd), K).numpy()
     assert (np.abs(want).sum(-1) > 0).mean() > 0.9
     close = (np.abs(got - want) <= 1e-6 + 2e-4 * np.abs(want)).all(-1)
     assert close.mean() >= 0.999, close.mean()
