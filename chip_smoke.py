@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cornell TREE
+    python3 chip_smoke.py --glass TREE
 
 Builds the port's CUDA kernels from ``gi_raytracer_tpu_torch/csrc`` with
 nvcc (one process per source, into the git-ignored ``build/``) and drives
@@ -40,8 +41,9 @@ card at the paths' shapes:
   must read back at 128x128x3 and the resumed image equal the first; then
   once more with ``--profile``, whose PNG must equal the first bit for
   bit and whose torch.profiler trace must parse and hold one
-  ``gi_walk_kernel`` (K2) and one ``gi_knn_kernel`` (K3) kernel event for
-  each launch the counters saw inside the profiled region;
+  ``gi_walk_kernel`` (K2) event, and one ``gi_knn_kernel`` and one
+  ``gi_knn_focal_kernel`` (K3's two tiers) event, for each launch the
+  counters saw inside the profiled region;
 * the gradient path (``grad_phase``): bench.py's train step, the mesh
   Cornell box at 256x256, 1 spp, depth 8 on the staged wave (K2 and K3
   forward, the kNN backward the plain estimator's VJP) with a map of the
@@ -81,8 +83,15 @@ the whole-window estimate, on the Cornell map (whose densest cells hold
 more than its window cap, 96) at the 65,536 primary hits and at the
 caustic queries of wave 0 of the render with the map, logging how far the
 cap reaches, and on a dense core with a near-coincident focus whose
-windows hold thousands of candidates; the render's caustic energy with
-the capped estimator (``knn_backend="jnp"``) is logged beside it.
+windows hold thousands of candidates and a second focus whose windows
+pass a focal block's shared memory; the render's caustic energy with
+the capped estimator (``knn_backend="jnp"``) is logged beside it.  Each
+K3 query set logs how many queries each tier took (the warp tier, the
+focal tier staged in shared memory, the focal tier past it) and each
+tier's close fraction, and each tier's device time over K3_PROFILE_CALLS
+calls; the dense-focus set must fill every tier, and in every tier each
+query off the plain version must be a tie at r_k or within the float32
+rounding bound of its sum (``k3_off``).
 Each render is timed after a warm-up render; one Cornell render with the
 map, one render of the largest terrain and one of the glass box, and one
 chunk (``ray_chunk`` slots) of the Cornell and glass photon passes, are
@@ -100,7 +109,15 @@ nvidia-smi prints them; and ``{"ok": true, "device": {...}}``.
 (an unpacked ``git archive`` of any commit of the port, this one or an
 older one) and runs only the Cornell path and K1's time on one of its
 512x512 waves, with this script's code, so that two trees are timed by
-the same code in processes that take turns on one card.
+the same code in processes that take turns on one card.  K3 is timed
+there on the primary hits, on wave 0's caustic queries and on the
+bench's 262,144 points, by CUDA events, by the host's time to issue a
+call and by its device time a call (torch.profiler, which leaves out the
+host's gaps), and inside one render with the map by the host's time in
+each call; on a tree whose K3 has two tiers each set also logs its
+tiers.  ``--glass TREE`` runs phase B alone in the same way: the glass
+box's build, photon pass and map, a warm-up render and GLASS_RENDERS
+timed renders with the map.
 """
 
 from __future__ import annotations
@@ -131,12 +148,18 @@ CORNELL_RENDERS = 4        # renders with the map and as many without
 BIG_SIZE, BIG_SPP, BIG_DEPTH = 256, 2, 3
 GLASS_SIZE, GLASS_SPP, GLASS_DEPTH = 256, 4, 8
 GLASS_PHOTONS = 250_000
+GLASS_RENDERS = 5          # timed phase B renders of --glass TREE
 K4_RAYS = 16_384            # wave-0 primary rays, and as many random rays
 # K3 dense-focus check: core and background photons, queries; a near-
 # coincident focus (photons, sigma) and queries inside it
 DENSE_CORE, DENSE_BACKGROUND, DENSE_QUERIES = 200_000, 50_000, 16_384
 DENSE_FOCUS, DENSE_FOCUS_SIGMA, DENSE_FOCUS_QUERIES = 20_000, 1e-4, 1_024
 KNN_BUDGET = 2048          # the JAX router's per-point window budget
+# and a focus past a K3 focal block's staged capacity: that many
+# photons more than the capacity, and queries inside it
+DENSE_SPILL_EXTRA, DENSE_SPILL_QUERIES = 12_000, 256
+K3_PROFILE_CALLS = 20      # K3 calls a profile of each query set
+K3_HOST_CALLS = 200        # K3 calls issued back to back for the host time
 
 # gates of the kernel-against-plain comparisons (the fractions are of lanes)
 K2_PRIM_EQUAL = 0.999      # prim ids equal (FMA flips borderline accepts)
@@ -292,6 +315,21 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_issue_ms(fn, reps):
+    """Mean host milliseconds to issue one call of ``fn`` (``reps`` calls
+    back to back, timed before the closing synchronize; one warm-up call
+    first): what a call costs the host when the card keeps up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e3
+
+
 def bound(ops, nbytes):
     """(ms, "operations" | "bytes"): the least time the card could take for
     ``ops`` FP32 operations that move ``nbytes`` bytes."""
@@ -313,7 +351,8 @@ def timed(fn):
 def profile(name, fn, top=8, host=True, span=None):
     """Device ms per kernel over one call of ``fn`` (torch.profiler) and
     the share of its wall the device was busy (one stream: the kernels do
-    not overlap).  ``host=False`` traces the device alone (for long runs
+    not overlap); the ``top`` kernels and, whatever their rank, the port's
+    own (``gi_*``).  ``host=False`` traces the device alone (for long runs
     of many small operations, such as a photon pass).  The device events
     are summed from the profiler's raw records, which is fast where
     ``key_averages`` would take minutes over a photon pass's events.
@@ -357,9 +396,12 @@ def profile(name, fn, top=8, host=True, span=None):
                 in_span += ms
     busy = sum(kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    ours = {k: round(v, 3) for k, v in kernels.items()
+            if k.removeprefix("void ").startswith("gi_")}
     log(f"profile {name}: wall ms {wall:.1f} device busy ms {busy:.1f} "
         f"({busy / wall:.4f}); kernels ms "
-        + json.dumps({k: round(v, 3) for k, v in ranked}))
+        + json.dumps({k: round(v, 3) for k, v in ranked})
+        + f"; the port's kernels ms {json.dumps(ours)}")
     if span is None:
         return busy, None
     log(f"profile {name}: {span} {len(ranges)} ranges, device ms "
@@ -448,6 +490,19 @@ def k3_queries(scene, cfg, cam):
             (-rd[ok]).contiguous())
 
 
+def k3_bench_points(scene, cfg, cam):
+    """The 262,144 points at which the port's bench times the caustic
+    estimate (``bench.py`` ``knn_gather_mphotons_per_s``): every primary
+    ray of one 512x512 wave, at its first hit or, on a miss, its origin."""
+    import torch
+    from gi_raytracer_tpu_torch.ops.intersect import trace_closest
+    from gi_raytracer_tpu_torch.render import Renderer
+    ro, rd, _, _ = Renderer(scene, cam, cfg, WIDTH, HEIGHT).wave_inputs(0)
+    hit = trace_closest(scene, ro, rd)
+    pts = ro + torch.where(hit.prim >= 0, hit.t, 0.0)[:, None] * rd
+    return pts.contiguous(), (-rd).contiguous()
+
+
 def k3_wave_queries(scene, cfg, cam, pm):
     """The caustic queries K3 answers in wave 0 of a 512x512 Cornell render
     with the map (K1's query records, compacted; one estimate a wave on
@@ -473,6 +528,31 @@ def k3_wave_queries(scene, cfg, cam, pm):
     require(len(calls) > 0, "no caustic estimate in the wave")
     return (torch.cat([c[0] for c in calls]).contiguous(),
             torch.cat([c[1] for c in calls]).contiguous())
+
+
+def k3_host_in_render(scene, cfg, cam, pm):
+    """(K3 calls, host ms spent in them, render seconds) of one 512x512
+    render with the map: each caustic estimate timed on the host clock
+    without a sync, which is what the host pays to issue it."""
+    from gi_raytracer_tpu_torch.render import Renderer
+    from gi_raytracer_tpu_torch.render import photon_knn
+    estimate = photon_knn._estimate
+    spent = []
+
+    def timed_estimate(*args):
+        t0 = time.perf_counter()
+        out = estimate(*args)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    photon_knn._estimate = timed_estimate
+    try:
+        r = Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm)
+        _, secs = timed(r.render)
+    finally:
+        photon_knn._estimate = estimate
+    require(len(spent) > 0, "no caustic estimate in the render")
+    return len(spent), sum(spent) * 1e3, secs
 
 
 def k3_window_stats(pm, pts):
@@ -552,6 +632,176 @@ def k3_bytes(pm, pts, k):
                  window_photons=photons, photons_within_rk=int(within.sum()))
     return (pts.shape[0] * (24 + 12) + entries * 4 + photons * 13
             + parts["photons_within_rk"] * 24), parts
+
+
+def sum_rounding(n):
+    """gamma_n = n u / (1 - n u), u = 2^-24: a float32 sum of n products,
+    in any order, lies within gamma_n * sum |product| of the exact sum."""
+    u = 2.0 ** -24
+    return n * u / (1 - n * u)
+
+
+def k3_off(pm, pts, dirs, k, got, want):
+    """Why queries found off the plain version are off, one at a time (for
+    the few that are): (tied, cancel, within) a query.  ``tied``: its k-th
+    and (k+1)-th nearest window candidates lie at the same d^2, a tie at
+    r_k, where K3 counts every photon within r_k (as the TPU kernels do)
+    and the plain version the first k by candidate order.  ``cancel``:
+    |sum| / sum |term| of its k nearest photons' weighted colours, the
+    least of the three channels; near 0 the sum's last bits depend on its
+    order, which differs between K3 and the plain version.  ``within``:
+    each channel of |got - want| is inside the K3 tolerance plus both sums'
+    float32 rounding bound, 2 gamma_(n+3) sum |col| sum_c |dir_c qdir_c|
+    over the n photons within r_k, over pi r_k^2 (``sum_rounding``; the 3
+    for the weight's dot product)."""
+    import torch
+    from gi_raytracer_tpu_torch.render.photon_knn import _d2, _window_takes
+    start, _, take = _window_takes(pm, pts)
+    out = []
+    for i in range(pts.shape[0]):
+        idx = torch.cat([torch.arange(a, a + n, device=pts.device)
+                         for a, n in zip(start[i].tolist(),
+                                         take[i].tolist())])
+        idx = idx[pm.valid[idx]]
+        d2, order = torch.sort(_d2(pm.pos[idx] - pts[i]), stable=True)
+        near = idx[order[:k]]
+        terms = pm.col[near] * (pm.dir[near] @ dirs[i])[:, None]
+        cancel = (terms.sum(0).abs()
+                  / terms.abs().sum(0).clamp(min=1e-30)).min().item()
+        rk2 = d2[min(k, d2.shape[0]) - 1]
+        sel = idx[order[d2 <= rk2]]
+        mag = (pm.col[sel].abs()
+               * (pm.dir[sel].abs() @ dirs[i].abs())[:, None]).sum(0)
+        bound = (2 * sum_rounding(sel.shape[0] + 3) * mag
+                 / (np.pi * rk2.clamp(min=1e-20)))
+        err = (got[i] - want[i]).abs()
+        within = bool((err <= K3_ATOL + K3_RTOL * want[i].abs()
+                       + bound).all())
+        out.append((d2.shape[0] > k and bool(d2[k - 1] == d2[k]), cancel,
+                    within))
+    return out
+
+
+def k3_tiers(label, pm, pts, dirs, cand, got=None, want=None):
+    """How many queries each tier of K3 took: the warp tier
+    (windows of at most ``photon_knn.FOCAL`` candidates, empty windows and
+    far sentinels), the focal tier with the window staged in a block's
+    shared memory, and the focal tier past that capacity; the focal count
+    is the kernel's own queue (``knn_counts``), gated against the windows.
+    With K3's estimates ``got`` and the plain version's ``want`` each
+    tier's close fraction (within the K3 tolerance) is logged, and for its
+    queries off the plain version how many have a tie at r_k and how far
+    their sums cancel (``k3_off``); each of those must be a tie or within
+    the rounding bound.  Returns the three counts."""
+    from gi_raytracer_tpu_torch.render.photon_knn import (
+        FAR, FOCAL, knn_counts, knn_info, sample_photons_tiled)
+    sample_photons_tiled(pm, pts, dirs, KNN_K)
+    queued, taken = knn_counts(pm)
+    info = knn_info()
+    cap = info["staged_capacity"]
+    live = pts[:, 0] < FAR
+    tiers = {"warp": ~live | (cand <= FOCAL),
+             "focal staged": live & (cand > FOCAL) & (cand <= cap),
+             "focal past capacity": live & (cand > cap)}
+    counts = {name: int(t.sum()) for name, t in tiers.items()}
+    close = None if got is None else (
+        (got - want).abs() <= K3_ATOL + K3_RTOL * want.abs()).all(-1)
+    parts = []
+    for name, t in tiers.items():
+        part = f"{name} {counts[name]}"
+        if close is not None and counts[name]:
+            part += f" close {close[t].float().mean().item():.6f}"
+            off = t & ~close
+            if off.any():
+                why = k3_off(pm, pts[off], dirs[off], KNN_K, got[off],
+                             want[off])
+                part += (f" ({len(why)} off: {sum(w[0] for w in why)} tied "
+                         f"at r_k, |sum| / sum |term| down to "
+                         f"{min(w[1] for w in why):.2e}, "
+                         f"{sum(w[2] for w in why)} within the rounding "
+                         f"bound)")
+                require(all(w[0] or w[2] for w in why),
+                        (label, name, "off, untied, past the rounding "
+                         "bound", why))
+        parts.append(part)
+    log(f"K3 {label}: tiers (threshold {FOCAL}, staged capacity {cap}): "
+        + ", ".join(parts) + f"; queued by the kernel {queued}, taken "
+        f"{taken}")
+    require(queued == counts["focal staged"] + counts["focal past capacity"],
+            (label, queued, counts))
+    require(taken == queued + info["focal"]["grid"], (label, taken, queued))
+    return counts
+
+
+def k3_device_ms(label, fn):
+    """The card's busy ms a call of ``fn`` over K3_PROFILE_CALLS calls in a
+    row (torch.profiler: every kernel each call launches, and not the
+    host's gaps between them, which CUDA events over a short launch
+    count); each kernel's share is logged."""
+    busy, _ = profile(f"K3 {label}, {K3_PROFILE_CALLS} calls",
+                      lambda: [fn() for _ in range(K3_PROFILE_CALLS)],
+                      host=False)
+    return busy / K3_PROFILE_CALLS
+
+
+def glass_path(glass, glass_cfg, cam, renders=1):
+    """Phase B on the glass box: a photon pass, its map, a warm-up render
+    and ``renders`` timed renders with the map (each logged, and their
+    median); gates the photons stored and each image; returns the renderer
+    and the last image."""
+    import torch
+    from gi_raytracer_tpu_torch.render import Renderer
+    from gi_raytracer_tpu_torch.render.photon import (build_photon_map,
+                                                      trace_photons)
+    gmin = glass.world_min.cpu().numpy()
+    gmax = glass.world_max.cpu().numpy()
+    batch, t_ph = timed(lambda: trace_photons(glass, glass_cfg))
+    stored = int(batch.stored.sum())
+    gpm, t_map = timed(lambda: build_photon_map(batch, gmin, gmax))
+    log(f"phase B photons stored {stored} of {GLASS_PHOTONS} "
+        f"({stored / GLASS_PHOTONS:.5f}) in {t_ph:.3f} s: "
+        f"{GLASS_PHOTONS / t_ph:.1f} photon slots/s; map {gpm.dims} "
+        f"window_cap {gpm.window_cap} built in {t_map:.3f} s")
+    require(stored >= MIN_STORED * GLASS_PHOTONS, stored)
+    r = Renderer(glass, cam, glass_cfg, GLASS_SIZE, GLASS_SIZE,
+                 photon_map=gpm)
+    r.render()                                          # warm-up
+    rates = []
+    for _ in range(renders):
+        (img, st), secs = timed(lambda: r.render(return_state=True))
+        rays = float(st["rays"])
+        rates.append(rays / secs)
+        log(f"phase B render {GLASS_SIZE}x{GLASS_SIZE} {GLASS_SPP} spp "
+            f"depth {GLASS_DEPTH} with the map: {rays:.0f} rays in "
+            f"{secs:.3f} s, {rays / secs:.1f} rays/s")
+        require(img.shape == (GLASS_SIZE, GLASS_SIZE, 3), img.shape)
+        require(torch.isfinite(img).all(), "finite glass image")
+        walls_gate(img, GLASS_SIZE)
+    if renders > 1:
+        log(f"phase B renders with the map: median "
+            f"{statistics.median(rates):.1f} rays/s of {renders}")
+    return r, img
+
+
+def glass_alone(cam):
+    """``--glass TREE``: the glass box built from TREE's code, then phase B
+    with GLASS_RENDERS timed renders."""
+    import torch
+    from gi_raytracer_tpu_torch.config import RenderConfig
+    from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
+    from gi_raytracer_tpu_torch.scene.cornell import (
+        GLASS_SUBDIVS, GLASS_TRIS, cornell_box)
+    glass_cfg = RenderConfig(min_samples=GLASS_SPP, max_samples=GLASS_SPP,
+                             adaptive=False, max_depth=GLASS_DEPTH,
+                             photons=GLASS_PHOTONS, knn_k=KNN_K, seed=SEED)
+    with Phase("glass build"):
+        glass, t_build = timed(lambda: cornell_box(
+            SceneBuilder, meshgen, True, GLASS_SUBDIVS).build(
+                device=torch.device("cuda", 0)))
+        require(glass.n_tris == GLASS_TRIS, glass.n_tris)
+        log(f"glass box {glass.n_tris} triangles built in {t_build:.3f} s")
+    with Phase("phase B: high-poly glass"):
+        glass_path(glass, glass_cfg, cam, GLASS_RENDERS)
 
 
 def cornell_path(scene, cfg, cam):
@@ -912,8 +1162,9 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
-    if argv and (len(argv) != 2 or argv[0] != "--cornell"):
-        print("usage: chip_smoke.py [--cornell TREE]", file=sys.stderr)
+    if argv and (len(argv) != 2 or argv[0] not in ("--cornell", "--glass")):
+        print("usage: chip_smoke.py [--cornell TREE | --glass TREE]",
+              file=sys.stderr)
         return 2
     tree = os.path.abspath(argv[1]) if argv else HERE
     sys.path.insert(0, tree)
@@ -926,6 +1177,7 @@ def main(argv) -> int:
         return 2
 
     # what the Cornell path needs, which --cornell TREE takes from the tree
+    # (and phase B, which --glass TREE takes from it)
     from gi_raytracer_tpu_torch.config import RenderConfig
     from gi_raytracer_tpu_torch.ops import _cuda
     from gi_raytracer_tpu_torch.ops.cuda_megakernel import (
@@ -962,6 +1214,10 @@ def main(argv) -> int:
     require(scene.n_tris == FULL_TRIS, scene.n_tris)
     require(mega_why_not(scene, cfg) == [], mega_why_not(scene, cfg))
 
+    if argv and argv[0] == "--glass":
+        glass_alone(cam)
+        log(nvidia_smi_line())
+        return 0
     if argv:
         # --cornell TREE: the Cornell path alone, and K1 at its shape
         with Phase("K1 wave"):
@@ -971,17 +1227,30 @@ def main(argv) -> int:
         with Phase("Cornell path"):
             pm, _ = cornell_path(scene, cfg, cam)
         with Phase("K3"):
-            from gi_raytracer_tpu_torch.render.photon_knn import (
-                sample_photons_tiled)
+            from gi_raytracer_tpu_torch.render import photon_knn
+            n, host_ms, secs = k3_host_in_render(scene, cfg, cam, pm)
+            log(f"K3 inside one render with the map: {n} calls, host ms "
+                f"in them {host_ms:.3f} ({host_ms / n * 1e3:.1f} us a "
+                f"call), render seconds {secs:.3f}")
             for label, (pts, dirs) in (
                     ("primary hits", k3_queries(scene, cfg, cam)),
                     ("wave 0 caustic queries",
-                     k3_wave_queries(scene, cfg, cam, pm))):
-                ms = cuda_ms(
-                    lambda: sample_photons_tiled(pm, pts, dirs, KNN_K), 20)
+                     k3_wave_queries(scene, cfg, cam, pm)),
+                    ("bench points", k3_bench_points(scene, cfg, cam))):
+                def call():
+                    return photon_knn.sample_photons_tiled(pm, pts, dirs,
+                                                           KNN_K)
+                ms = cuda_ms(call, 20)
+                host_ms = host_issue_ms(call, K3_HOST_CALLS)
+                device = k3_device_ms(label, call)
+                stats, cand = k3_window_stats(pm, pts)
                 log(f"K3 on {pts.shape[0]} {label} with the map: ms "
-                    f"{ms:.4f}; window cap "
-                    f"{json.dumps(k3_window_stats(pm, pts)[0])}")
+                    f"{ms:.4f} ({pts.shape[0] * KNN_K / ms / 1e3:.1f} "
+                    f"Mphotons/s), host ms to issue a call {host_ms:.4f}, "
+                    f"device ms a call {device:.4f}; window cap "
+                    f"{json.dumps(stats)}")
+                if hasattr(photon_knn, "knn_counts"):   # two tiers
+                    k3_tiers(label, pm, pts, dirs, cand)
         log(nvidia_smi_line())
         return 0
 
@@ -1325,6 +1594,8 @@ def main(argv) -> int:
             err = (got - want).abs()
             close = (err <= K3_ATOL + K3_RTOL * want.abs()).all(-1)
             frac = close.float().mean().item()
+            k3_tiers(label, pm, pts, dirs, k3_window_stats(pm, pts)[1],
+                     got, want)
             nonzero = (want.abs().sum(-1) > 0).float().mean().item()
             ms = cuda_ms(lambda: sample_photons_tiled(pm, pts, dirs, KNN_K),
                          20)
@@ -1345,9 +1616,15 @@ def main(argv) -> int:
                 f"(knn_backend jnp) {capped.sum().item():.6e}")
             require(frac >= K3_CLOSE, (label, frac))
             require(nonzero > 0.0, (label, nonzero))
+            # each tier's device time (the focal launch on an empty queue
+            # on the primary hits)
+            k3_device_ms(label, lambda: sample_photons_tiled(
+                pm, pts, dirs, KNN_K))
             del got, want, capped
-        log(f"K3 resources {json.dumps(knn_info())}")
-        require(knn_info()["local_bytes"] == 0, knn_info())
+        info = knn_info()
+        log(f"K3 resources {json.dumps(info)}")
+        require(info["warp"]["local_bytes"] == 0
+                and info["focal"]["local_bytes"] == 0, info)
         del sets, pts, dirs
         # the Cornell render's caustic energy (with the map less without
         # it: the map adds to the paths and changes none of them), whole
@@ -1418,24 +1695,31 @@ def main(argv) -> int:
         # hold thousands of candidates
         g = torch.Generator(device=dev).manual_seed(SEED + 1)
         focus_at = torch.tensor([0.1, 0.05, -0.1], device=dev)
+        # a second focus past a focal block's shared memory
+        spill_at = torch.tensor([-0.6, 0.7, 0.55], device=dev)
+        n_spill = knn_info()["staged_capacity"] + DENSE_SPILL_EXTRA
         pos = torch.cat([
             (torch.rand((DENSE_CORE, 3), generator=g, device=dev) - 0.5) * 0.5,
             (torch.rand((DENSE_BACKGROUND, 3), generator=g, device=dev)
              - 0.5) * 2.0,
             focus_at + DENSE_FOCUS_SIGMA * torch.randn(
-                (DENSE_FOCUS, 3), generator=g, device=dev)])
+                (DENSE_FOCUS, 3), generator=g, device=dev),
+            spill_at + DENSE_FOCUS_SIGMA * torch.randn(
+                (n_spill, 3), generator=g, device=dev)])
         P = pos.shape[0]
         dmap = build_photon_map(PhotonBatch(
             pos, normalize(torch.randn((P, 3), generator=g, device=dev)),
             torch.rand((P, 3), generator=g, device=dev) * 1e-3,
             torch.ones(P, dtype=torch.bool, device=dev)),
             (-1.0,) * 3, (1.0,) * 3, target_per_cell=1.78,
-            max_cells=1 << 20)      # stops at the first grid, 53^3 cells
+            max_cells=1 << 20)      # stops at the first grid
         q = torch.cat([
             (torch.rand((DENSE_QUERIES, 3), generator=g, device=dev) - 0.5)
             * 0.7,
             focus_at + 2 * DENSE_FOCUS_SIGMA * torch.randn(
-                (DENSE_FOCUS_QUERIES, 3), generator=g, device=dev)])
+                (DENSE_FOCUS_QUERIES, 3), generator=g, device=dev),
+            spill_at + 2 * DENSE_FOCUS_SIGMA * torch.randn(
+                (DENSE_SPILL_QUERIES, 3), generator=g, device=dev)])
         qd = normalize(torch.randn((q.shape[0], 3), generator=g,
                                    device=dev))
         got = sample_photons_tiled(dmap, q, qd, KNN_K)
@@ -1458,6 +1742,8 @@ def main(argv) -> int:
             f"{K3_DENSE_WINDOW} {close[dense].float().mean().item():.6f} "
             f"({int(dense.sum())} queries)")
         require(min(tiers) > 0, tiers)
+        counts = k3_tiers("dense focus", dmap, q, qd, cand, got, want)
+        require(min(counts.values()) > 0, ("every K3 tier", counts))
         require(close[dense].float().mean().item() >= K3_CLOSE, "dense K3")
         require(close.float().mean().item() >= K3_CLOSE, "K3 dense focus")
         del dmap, pos, q, qd, got, want
@@ -1673,32 +1959,9 @@ def main(argv) -> int:
                    (stream_boxes(glass), chunk_boxes(glass)),
                    photon_round(glass, glass_cfg), glass_cfg.epsilon)
 
-    def glass_path():
-        gmin = glass.world_min.cpu().numpy()
-        gmax = glass.world_max.cpu().numpy()
-        batch, t_ph = timed(lambda: trace_photons(glass, glass_cfg))
-        stored = int(batch.stored.sum())
-        gpm, t_map = timed(lambda: build_photon_map(batch, gmin, gmax))
-        log(f"phase B photons stored {stored} of {GLASS_PHOTONS} "
-            f"({stored / GLASS_PHOTONS:.5f}) in {t_ph:.3f} s: "
-            f"{GLASS_PHOTONS / t_ph:.1f} photon slots/s; map {gpm.dims} "
-            f"window_cap {gpm.window_cap} built in {t_map:.3f} s")
-        require(stored >= MIN_STORED * GLASS_PHOTONS, stored)
-        r = Renderer(glass, cam, glass_cfg, GLASS_SIZE, GLASS_SIZE,
-                     photon_map=gpm)
-        r.render()                                          # warm-up
-        (img, st), secs = timed(lambda: r.render(return_state=True))
-        rays = float(st["rays"])
-        log(f"phase B render {GLASS_SIZE}x{GLASS_SIZE} {GLASS_SPP} spp "
-            f"depth {GLASS_DEPTH} with the map: {rays:.0f} rays in "
-            f"{secs:.3f} s, {rays / secs:.1f} rays/s")
-        require(img.shape == (GLASS_SIZE, GLASS_SIZE, 3), img.shape)
-        require(torch.isfinite(img).all(), "finite glass image")
-        walls_gate(img, GLASS_SIZE)
-        return r, img
-
     with Phase("phase B: high-poly glass"):
-        r, img = drive("phase B", glass_path, need=("stream", "knn"),
+        r, img = drive("phase B", lambda: glass_path(glass, glass_cfg, cam),
+                       need=("stream", "knn"),
                        absent=("intersect", "megakernel"))
     save_png(r, img, "glass_256.png")
     profile(f"glass {glass.n_tris} render with the map", r.render)
@@ -1903,7 +2166,8 @@ def main(argv) -> int:
             finally:
                 cli._profiled = profiled_region
             counted = {"gi_walk_kernel": region["intersect"],
-                       "gi_knn_kernel": region["knn"]}
+                       "gi_knn_kernel": region["knn"],
+                       "gi_knn_focal_kernel": region["knn"]}
             with open(profiled, "rb") as f, open(png, "rb") as g:
                 require(f.read() == g.read(), "the profiled render's PNG "
                         "equals the unprofiled one bit for bit")

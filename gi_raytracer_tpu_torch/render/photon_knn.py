@@ -29,8 +29,12 @@ nearest, divided by the window's subsample rate got/true.
 
 The TPU tile machinery (Morton tiles, the chunk table, tile classes, pass 2
 and the chunk-row residual) is not ported: it exists for the TPU's layout.
-The kernel answers each query with one warp (:func:`knn_info` reports its
-resources on the card).
+The kernel is two launches on one stream: a warp answers each query whose
+window holds at most ``FOCAL`` candidates and queues the others, and a
+persistent grid of blocks then answers the queued (focal) queries, a block
+a query, with the window's distances staged once in shared memory
+(:func:`knn_info` reports both tiers' resources on the card,
+:func:`knn_counts` the last call's queue).
 
 Gradients: ``sample_photons_tiled`` is a ``torch.autograd.Function``
 whose forward is the kernel (the plain version on the CPU) and whose
@@ -57,6 +61,10 @@ from .geom import PI
 
 FAR = 1e29        # queries at or past this x are far sentinels (estimate 0)
 KMAX = 64         # the kernel's k bound (csrc/knn.cu)
+# the warp tier's largest window (candidates a warp holds in registers,
+# csrc/knn.cu GI_KNN_FOCAL): past it a query goes to the focal tier
+FOCAL = 128
+COUNTERS = 5      # int32 counters ahead of K3's queue (GI_KNN_COUNTERS)
 # a plain block's bounds: lanes, and candidate slots (lanes times the
 # block's largest window), which bound its (B, W) intermediates
 BLOCK_LANES = 32_768
@@ -298,16 +306,50 @@ def sample_photons_tiled(pm, point, direction, k):
     return _estimate(pm, point, direction, k)
 
 
+_RESOURCES = ("blocks_per_sm", "registers", "local_bytes", "dynamic_smem",
+              "static_smem", "threads")
+
+
 def knn_info() -> dict:
-    """The kNN kernel's resources on the card: resident blocks per SM,
-    registers and local (spill) bytes per thread, dynamic and static shared
-    bytes per block, threads per block, and the window candidates a warp
-    keeps in registers."""
-    out = (ctypes.c_int * 7)()
-    _cuda.check(_cuda.lib().gi_knn_info(ctypes.addressof(out)), "gi_knn_info")
-    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
-                     "dynamic_smem", "static_smem", "threads",
-                     "register_candidates"), list(out)))
+    """Both tiers' resources on the card: ``"warp"`` and ``"focal"`` each
+    give resident blocks per SM, registers and local (spill) bytes per
+    thread, dynamic and static shared bytes per block and threads per
+    block; the warp tier also the window candidates a warp keeps in
+    registers, the focal tier its grid.  ``focal_threshold`` is the warp
+    tier's largest window (``FOCAL``), ``staged_capacity`` the candidates a
+    focal block stages in shared memory, ``counters`` the int32 counts a
+    launch takes."""
+    out = (ctypes.c_int * 16)()
+    _cuda.check(_cuda.lib().gi_knn_info(ctypes.addressof(out)),
+                "gi_knn_info")
+    v = list(out)
+    return {"focal_threshold": v[6], "staged_capacity": v[14],
+            "counters": v[15],
+            "warp": dict(zip(_RESOURCES, v[:6]), register_candidates=v[6]),
+            "focal": dict(zip(_RESOURCES, v[7:13]), grid=v[13])}
+
+
+def knn_counts(pm) -> tuple:
+    """(queries queued for the focal tier, queue entries the focal blocks
+    took) by the last K3 call on ``pm`` (a host sync; 0, 0 before one)."""
+    scratch = pm.__dict__.get("_knn_scratch")
+    if scratch is None:
+        return 0, 0
+    return tuple(scratch[3:5].tolist())
+
+
+def _knn_scratch(pm, n_q, device):
+    """The counters K3 takes, then its queue (at least n_q int32), kept on the
+    PhotonMap and grown with the largest call: the counters are zeroed
+    once here and by each launch's last focal block after, so a call
+    allocates and clears nothing.  K3 calls on one map run in turn, on
+    one stream."""
+    kept = pm.__dict__.get("_knn_scratch")
+    if kept is None or kept.device != device or \
+            kept.shape[0] < COUNTERS + n_q:
+        kept = torch.zeros(COUNTERS + n_q, dtype=torch.int32, device=device)
+        pm.__dict__["_knn_scratch"] = kept
+    return kept
 
 
 def _knn_tables(pm):
@@ -315,15 +357,25 @@ def _knn_tables(pm):
     int32 cell ranges, the grid's origin and inverse cell size as Python
     floats), kept on the PhotonMap object and built again after its
     tensors change (``types.derived``): each render wave then launches the
-    kernel without a conversion or a host sync."""
+    kernel without a conversion, a host sync or the tables' checks, which
+    are made here once."""
     def build():
-        return (pm.pos.detach().float().contiguous(),
-                pm.dir.detach().float().contiguous(),
-                pm.col.detach().float().contiguous(),
-                pm.valid.to(torch.uint8).contiguous(),
-                pm.cell_start.to(torch.int32).contiguous(),
-                [float(x) for x in pm.grid_min.tolist()],
-                [float(x) for x in pm.inv_cell.tolist()])
+        t = (pm.pos.detach().float().contiguous(),
+             pm.dir.detach().float().contiguous(),
+             pm.col.detach().float().contiguous(),
+             pm.valid.to(torch.uint8).contiguous(),
+             pm.cell_start.to(torch.int32).contiguous())
+        P = t[0].shape[0]
+        for what, x, shape in (("photon pos", t[0], (P, 3)),
+                               ("photon dir", t[1], (P, 3)),
+                               ("photon col", t[2], (P, 3)),
+                               ("photon valid", t[3], (P,))):
+            _cuda.require_shape(f"knn {what}", x, shape)
+        if any(x.device != t[0].device for x in t):
+            raise ValueError("knn: the photon map's tensors lie on more "
+                             "than one device")
+        return t + ([float(x) for x in pm.grid_min.tolist()],
+                    [float(x) for x in pm.inv_cell.tolist()])
 
     return derived(pm, "_knn_tables", (pm.pos, pm.dir, pm.col, pm.valid,
                                        pm.cell_start, pm.grid_min,
@@ -337,23 +389,21 @@ def _knn_cuda(pm, point, direction, k):
     q = point.detach().float().contiguous()
     qd = direction.detach().float().contiguous()
     ppos, pdir, pcol, pval, cs, g, iv = _knn_tables(pm)
-    _cuda.require_cuda("knn", q, qd, ppos, pdir, pcol, pval, cs)
-    P = ppos.shape[0]
+    _cuda.require_cuda("knn", q, qd, ppos)
     nx, ny, nz = (int(x) for x in pm.dims)
     for what, t, shape in (("points", q, (R, 3)), ("directions", qd, (R, 3)),
-                           ("photon dir", pdir, (P, 3)),
-                           ("photon col", pcol, (P, 3)),
-                           ("photon valid", pval, (P,)),
                            ("cell_start", cs, (nx * ny * nz + 1,))):
         _cuda.require_shape(f"knn {what}", t, shape)
     out = torch.empty((R, 3), dtype=torch.float32, device=q.device)
     if R == 0:
         return out.to(point.dtype)
+    scratch = _knn_scratch(pm, R, q.device).data_ptr()
     code = _cuda.lib().gi_knn_launch(
         q.data_ptr(), qd.data_ptr(), R, ppos.data_ptr(), pdir.data_ptr(),
         pcol.data_ptr(), pval.data_ptr(), cs.data_ptr(), nx, ny, nz,
         g[0], g[1], g[2], iv[0], iv[1], iv[2], int(k),
-        out.data_ptr(), _cuda.stream_ptr(q.device))
+        scratch + 4 * COUNTERS, scratch, out.data_ptr(),
+        _cuda.stream_ptr(q.device))
     _cuda.check(code, "gi_knn_launch")
     _cuda.launches["knn"] += 1
     return out.to(point.dtype)

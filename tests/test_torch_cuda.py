@@ -8,6 +8,8 @@ file imports no JAX, so it also runs on a machine without it:
 (``chip_smoke.py`` makes the same comparisons at the main path's shapes.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -27,8 +29,9 @@ from gi_raytracer_tpu_torch.render.photon import (PhotonBatch,
                                                   build_photon_map,
                                                   sample_photons,
                                                   trace_photons)
-from gi_raytracer_tpu_torch.render.photon_knn import (_cells, _window,
-                                                     knn_info,
+from gi_raytracer_tpu_torch.render.photon_knn import (COUNTERS, FOCAL,
+                                                     _cells, _window,
+                                                     knn_counts, knn_info,
                                                      sample_photons_plain,
                                                      sample_photons_tiled)
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
@@ -322,6 +325,11 @@ def _knn_ties_included(pm, q, qd, k):
     """The kernel's estimate in plain torch: every photon of the whole
     window with d^2 <= the k-th smallest d^2 counts, ties included (the
     plain ``sample_photons_plain`` takes exactly k)."""
+    return _ties_included(pm, q, qd, k)[0]
+
+
+def _ties_included(pm, q, qd, k):
+    """(``_knn_ties_included``, the photons within r_k a query)."""
     occ = int((pm.cell_start[1:] - pm.cell_start[:-1]).max())
     ar = torch.arange(occ, device=q.device)
     idx_l, ok_l = [], []
@@ -343,7 +351,7 @@ def _knn_ties_included(pm, q, qd, k):
     total = torch.where(sel[..., None], pm.col[idx] * w[..., None], 0.0) \
         .sum(1)
     est = total / (torch.pi * torch.clamp(rk2, min=1e-20))
-    return torch.where((found > 0)[:, None], est, 0.0)
+    return torch.where((found > 0)[:, None], est, 0.0), sel.sum(1)
 
 
 def test_knn_kernel_distance_ties(dev):
@@ -423,12 +431,236 @@ def test_knn_kernel_windows_past_the_register_store(dev):
     q = torch.rand((4096, 3), generator=g, device=dev) - 0.5
     qd = normalize(torch.randn((4096, 3), generator=g, device=dev))
     cand = _window_candidates(pm, q)
-    assert (cand > knn_info()["register_candidates"]).float().mean() > 0.5
+    info = knn_info()
+    assert (cand > info["warp"]["register_candidates"]).float().mean() > 0.5
     got = sample_photons_tiled(pm, q, qd, 32)
     want = sample_photons_plain(pm, q, qd, 32)
     close = ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
     assert close.float().mean() >= 0.999
-    assert knn_info()["local_bytes"] == 0
+    assert info["warp"]["local_bytes"] == 0
+    assert info["focal"]["local_bytes"] == 0
+
+
+# the focal tier: queries past the warp tier's threshold, a block each.
+# Directions lean to +z (light from above), so the weights dot(dir, qdir)
+# are mostly positive and no estimate is a near-cancelling sum whose last
+# bits depend on the order of the sum, which differs between the tiers.
+def _up_dirs(g, dev, n):
+    up = torch.tensor([0.0, 0.0, 2.0], device=dev)
+    return normalize(torch.randn((n, 3), generator=g, device=dev) + up)
+
+
+def _close(got, want):
+    return ((got - want).abs() <= 1e-6 + 2e-4 * want.abs()).all(-1)
+
+
+def _held_to_plain(pm, q, qd, k):
+    """K3 against its plain version: returns (close a query, candidates a
+    query, queries queued); the kernel queued exactly the live queries
+    past FOCAL, its focal grid spent the queue (each block takes one entry
+    past its end), and its last block zeroed the live counters."""
+    got = sample_photons_tiled(pm, q, qd, k)
+    want = sample_photons_plain(pm, q, qd, k)
+    cand = _window_candidates(pm, q)
+    queued, taken = knn_counts(pm)
+    assert queued == int(((cand > FOCAL) & (q[:, 0] < 1e29)).sum())
+    assert taken == queued + knn_info()["focal"]["grid"]
+    assert pm.__dict__["_knn_scratch"][:3].tolist() == [0, 0, 0]
+    return _close(got, want), cand, queued
+
+
+def test_knn_tiers_meet_at_the_threshold(dev):
+    """Uniform photons whose windows hold about FOCAL candidates (grid
+    cells of FOCAL / 27): windows of exactly FOCAL candidates stay on the
+    warp tier, those of FOCAL + 1 go to the focal tier, and both agree
+    with the plain version."""
+    focal = FOCAL
+    g = torch.Generator(device=dev).manual_seed(20 + focal)
+    # a 16^3 grid (4,000 cells asked for: the map pads the photons' extent
+    # by 1e-3 a side) of about focal / 27 photons a cell
+    P = 151 * focal
+    pos = torch.rand((P, 3), generator=g, device=dev) - 0.5
+    pm = build_photon_map(PhotonBatch(
+        pos, _up_dirs(g, dev, P), torch.rand((P, 3), generator=g, device=dev),
+        torch.ones(P, dtype=torch.bool, device=dev)),
+        (-0.5,) * 3, (0.5,) * 3, target_per_cell=P / 4000, window_cap=96)
+    assert pm.dims == (16, 16, 16)
+    q = (torch.rand((8192, 3), generator=g, device=dev) - 0.5) * 0.9
+    close, cand, queued = _held_to_plain(pm, q, _up_dirs(g, dev, 8192), 32)
+    at, past = cand == focal, cand == focal + 1
+    assert at.any() and past.any() and 0 < queued < q.shape[0]
+    assert close[at].all() and close[past].all()
+    assert close.float().mean() >= 0.999
+
+
+@pytest.fixture(scope="module")
+def focal_map(dev):
+    """A near-coincident blob of more photons than a focal block stages in
+    shared memory (no grid of the map's cell budget splits it) in a sparse
+    background; queries inside the blob (focal, past the capacity) and
+    over the box (short windows)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    n_blob = knn_info()["staged_capacity"] + 12_000
+    at = torch.tensor([0.1, 0.05, -0.1], device=dev)
+    pos = torch.cat([at + 1e-4 * torch.randn((n_blob, 3), generator=g,
+                                             device=dev),
+                     torch.rand((20_000, 3), generator=g, device=dev) * 2 - 1])
+    P = pos.shape[0]
+    pm = build_photon_map(PhotonBatch(
+        pos, _up_dirs(g, dev, P), torch.rand((P, 3), generator=g, device=dev),
+        torch.ones(P, dtype=torch.bool, device=dev)), (-1.0,) * 3,
+        (1.0,) * 3, max_cells=1 << 18)
+    focus = at + 2e-4 * torch.randn((256, 3), generator=g, device=dev)
+    spread = torch.rand((1024, 3), generator=g, device=dev) * 2 - 1
+    return pm, focus, spread, _up_dirs(g, dev, 1280)
+
+
+def test_knn_focal_tier_past_shared_capacity(dev, focal_map):
+    """Windows past a focal block's shared memory: the same radix passes
+    over distances computed again from device memory, in the same launch."""
+    pm, focus, spread, qd = focal_map
+    q = torch.cat([focus, spread])
+    close, cand, queued = _held_to_plain(pm, q, qd, 32)
+    assert (cand > knn_info()["staged_capacity"]).sum() >= 200
+    assert queued >= 256
+    assert close.float().mean() >= 0.999
+    assert close[:256].float().mean() >= 0.999
+
+
+def test_knn_batches_of_one_tier(dev, focal_map):
+    """A batch with no focal query (the focal grid reads a zero count and
+    ends) and a batch of focal queries only; then the same call again,
+    with its queue counter zeroed by the last call's focal grid, gives the
+    same bits and counts."""
+    pm, focus, spread, qd = focal_map
+    short = spread[_window_candidates(pm, spread) <= FOCAL]
+    close, _, queued = _held_to_plain(pm, short, qd[:short.shape[0]], 32)
+    assert queued == 0 and close.float().mean() >= 0.999
+    close, _, queued = _held_to_plain(pm, focus, qd[:256], 32)
+    assert queued == 256 and close.all()
+    first = sample_photons_tiled(pm, focus, qd[:256], 32)
+    c1 = knn_counts(pm)
+    again = sample_photons_tiled(pm, focus, qd[:256], 32)
+    assert torch.equal(first, again) and knn_counts(pm) == c1
+
+
+@pytest.mark.parametrize("k", [1, 64])
+def test_knn_focal_tier_k_bounds(dev, focal_map, k):
+    """k = 1 and k = KMAX on the focal tier, staged and past the capacity."""
+    pm, focus, spread, qd = focal_map
+    q = torch.cat([focus, spread])
+    close, _, queued = _held_to_plain(pm, q, qd, k)
+    assert queued >= 256
+    assert close[:256].all() and close.float().mean() >= 0.999
+
+
+def test_knn_focal_tier_distance_ties(dev):
+    """A blob whose every position is held by three photons, with windows
+    past the threshold: the focal tier counts every tied photon."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    at = torch.tensor([-0.2, 0.1, 0.05], device=dev)
+    blob = (at + 1e-3 * torch.randn((1500, 3), generator=g, device=dev)) \
+        .repeat(3, 1)
+    pos = torch.cat([blob, torch.rand((4000, 3), generator=g, device=dev)
+                     * 2 - 1])
+    P = pos.shape[0]
+    pm = build_photon_map(PhotonBatch(
+        pos, _up_dirs(g, dev, P), torch.rand((P, 3), generator=g, device=dev),
+        torch.ones(P, dtype=torch.bool, device=dev)), (-1.0,) * 3,
+        (1.0,) * 3, max_cells=1 << 18)
+    q = at + 1e-3 * torch.randn((256, 3), generator=g, device=dev)
+    qd = _up_dirs(g, dev, 256)
+    got = sample_photons_tiled(pm, q, qd, 32)
+    queued = knn_counts(pm)[0]
+    assert queued == int((_window_candidates(pm, q) > FOCAL).sum())
+    assert queued >= 200
+    want = _knn_ties_included(pm, q, qd, 32)
+    assert _close(got, want).float().mean() >= 0.999
+    # the ties matter: the plain estimate (exactly k) differs on many
+    plain = sample_photons_plain(pm, q, qd, 32)
+    assert (~_close(plain, want)).float().mean() > 0.05
+
+
+def test_knn_info_both_tiers(dev):
+    """Neither tier spills; the warp tier's threshold is the window its
+    registers hold; a focal block stages its dynamic shared memory's worth
+    of d^2 bits, on a grid of the SMs times its resident blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    info = knn_info()
+    assert info["focal_threshold"] == FOCAL
+    assert info["warp"]["register_candidates"] == FOCAL
+    assert info["counters"] == COUNTERS
+    assert info["warp"]["local_bytes"] == 0
+    assert info["focal"]["local_bytes"] == 0
+    assert info["warp"]["blocks_per_sm"] >= 1
+    assert info["focal"]["blocks_per_sm"] >= 1
+    assert info["focal"]["grid"] == sms * info["focal"]["blocks_per_sm"]
+    assert info["staged_capacity"] == info["focal"]["dynamic_smem"] // 4
+    assert info["staged_capacity"] > 4 * FOCAL
+
+
+def _ties_included_bounded(pm, q, qd, k, chunk=16):
+    """(``_knn_ties_included``, its float32 rounding bound, the sum's
+    magnitude), channel by channel, ``chunk`` queries at a time.  A sum of
+    n products in any order lies within gamma_n sum |product| of the exact
+    sum (gamma_n = n u / (1 - n u), u = 2^-24), so two sums of it differ by
+    at most 2 gamma_(n+3) times the magnitude, sum |col| sum_c |dir_c
+    qdir_c| over the n photons within r_k (ties included; the 3 for the
+    weight's dot product) over pi r_k^2: the estimate of the map and query
+    directions with every component's absolute value."""
+    abs_pm = dataclasses.replace(pm, dir=pm.dir.abs(), col=pm.col.abs())
+    u = 2.0 ** -24
+    est, bound, mags = [], [], []
+    for i in range(0, q.shape[0], chunk):
+        e, n = _ties_included(pm, q[i:i + chunk], qd[i:i + chunk], k)
+        mag = _knn_ties_included(abs_pm, q[i:i + chunk],
+                                 qd[i:i + chunk].abs(), k)
+        n = n.double()[:, None] + 3
+        est.append(e)
+        bound.append(2 * n * u / (1 - n * u) * mag)
+        mags.append(mag)
+    return torch.cat(est), torch.cat(bound), torch.cat(mags)
+
+
+def test_knn_isotropic_directions_within_rounding(dev):
+    """Photon and query directions drawn over the whole sphere, so that
+    some estimates are near-cancelling sums, on windows of every tier (the
+    warp tier, the focal tier staged and past the staged capacity): every
+    query agrees with the plain version within the K3 tolerance plus the
+    float32 rounding bound of its sum, the only place where the block's
+    summation order may show."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    n_blob = knn_info()["staged_capacity"] + 12_000
+    at = torch.tensor([0.1, 0.05, -0.1], device=dev)
+    mid = torch.tensor([-0.5, 0.4, 0.3], device=dev)
+    pos = torch.cat([at + 1e-4 * torch.randn((n_blob, 3), generator=g,
+                                             device=dev),
+                     mid + 1e-3 * torch.randn((4000, 3), generator=g,
+                                              device=dev),
+                     torch.rand((20_000, 3), generator=g, device=dev) * 2 - 1])
+    P = pos.shape[0]
+    pm = build_photon_map(PhotonBatch(
+        pos, normalize(torch.randn((P, 3), generator=g, device=dev)),
+        torch.rand((P, 3), generator=g, device=dev),
+        torch.ones(P, dtype=torch.bool, device=dev)), (-1.0,) * 3,
+        (1.0,) * 3, max_cells=1 << 18)
+    q = torch.cat([at + 2e-4 * torch.randn((64, 3), generator=g, device=dev),
+                   mid + 2e-3 * torch.randn((256, 3), generator=g,
+                                            device=dev),
+                   torch.rand((1024, 3), generator=g, device=dev) * 2 - 1])
+    qd = normalize(torch.randn((q.shape[0], 3), generator=g, device=dev))
+    got = sample_photons_tiled(pm, q, qd, 32)
+    cand = _window_candidates(pm, q)
+    cap = knn_info()["staged_capacity"]
+    assert (cand <= FOCAL).any() and (cand > cap).sum() >= 32
+    assert ((cand > FOCAL) & (cand <= cap)).sum() >= 128
+    want, bound, mag = _ties_included_bounded(pm, q, qd, 32)
+    err = (got - want).abs()
+    assert (err <= 1e-6 + 2e-4 * want.abs() + bound).all()
+    # some focal sums cancel to below 1% of their magnitude, where the
+    # sums' rounding reaches the 2e-4 tolerance
+    cancel = want.abs() < 1e-2 * mag
+    assert (cancel & (cand > FOCAL)[:, None]).sum() >= 4
 
 
 def test_default_build_lands_on_the_card(dev):

@@ -10,8 +10,10 @@ as the caustic foci of every real map do.
 K3 computes on the card) against JAX ``_fwd_perpoint`` in interpret mode
 on the queries with at most 2,048 candidates, which every JAX accelerator
 path computes exactly (past 2,048 the JAX router falls back to the capped
-estimator; the port does not); (b) every query, larger windows included,
-against a float64 brute-force oracle over the query's own window; (c)
+estimator; the port does not); (b) every query, larger windows included
+(past 30,000 candidates at a near-point focus, the size K3's focal tier
+stages), against a float64 brute-force oracle over the query's own
+window; (c)
 ``knn_backend="jnp"`` against JAX ``photon.sample_photons``, the capped
 estimator; (d) the whole-window estimator's gradients: gradcheck in
 float64 under a binding cap, and jax.grad through JAX
@@ -154,6 +156,30 @@ def test_every_window_matches_float64_oracle(case):
     got = sample_photons_tiled(tpm, torch.from_numpy(q),
                                torch.from_numpy(qd), K).numpy()
     np.testing.assert_allclose(got, _oracle(tpm, q, qd, K), rtol=5e-3,
+                               atol=1e-4)
+
+
+def test_plain_matches_float64_oracle_past_30k_candidates():
+    """The plain version, which the card's gates hold K3's focal tier to,
+    against the float64 oracle at a near-point focus of 32,000 photons
+    that no grid of the cell budget splits: windows of more than 30,000
+    candidates, the size a focal block stages in shared memory."""
+    rng = np.random.default_rng(13)
+    at = (0.1, -0.1, 0.2)
+    pos, d, col = _photons(rng, ((at, 32_000, 1e-4),), 2000)
+    pm = tph.build_photon_map(
+        tph.PhotonBatch(*(torch.from_numpy(a) for a in (pos, d, col)),
+                        torch.ones(pos.shape[0], dtype=torch.bool)),
+        -np.ones(3), np.ones(3), max_cells=4096)
+    q = np.concatenate([rng.normal(at, 2e-4, (48, 3)),
+                        rng.uniform(-1.0, 1.0, (16, 3))]).astype(np.float32)
+    qd = _directions(rng, q.shape[0])
+    n, _ = _window_stats(pm, torch.from_numpy(q))
+    assert (n[:48] > 30_000).all()
+    got = sample_photons_tiled(pm, torch.from_numpy(q),
+                               torch.from_numpy(qd), K).numpy()
+    assert (np.abs(got[:48]).sum(-1) > 0).all()
+    np.testing.assert_allclose(got, _oracle(pm, q, qd, K), rtol=5e-3,
                                atol=1e-4)
 
 
