@@ -1,0 +1,55 @@
+"""Frozen copy of ``gi_raytracer_tpu_torch/render/camera.py`` at commit
+e5c621cb1248e04fcb8b4b38f842b5dd40c8e8a0, kept so that the benchmark
+never imports the program for its reference or its scenes.
+
+Camera model and primary ray generation (counterpart of
+``gi_raytracer_tpu.render.camera``)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .geom import normalize
+
+SENSOR_DIAG = 0.035 * 240 * 2
+FOCAL_DIST = 0.04 * 240
+
+
+@dataclasses.dataclass
+class Camera:
+    pos: tuple = (10.0, 5.0, 0.0)
+    look_at: tuple = (0.0, 0.0, 0.0)
+    sensor_diag: float = SENSOR_DIAG
+    focal_dist: float = FOCAL_DIST
+    focal_blur: float = 0.0
+
+    def basis(self, dtype=torch.float32, device=None):
+        """(pos, forward, up, cam_right).  ``pos`` and ``look_at`` may be
+        tensors that carry a gradient (``torch.as_tensor`` keeps it)."""
+        pos = torch.as_tensor(self.pos, dtype=dtype, device=device)
+        fwd = normalize(torch.as_tensor(self.look_at, dtype=dtype,
+                                        device=device) - pos)
+        up0 = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device)
+        right = normalize(torch.linalg.cross(up0, fwd))
+        up = torch.linalg.cross(fwd, right)
+        cam_right = normalize(torch.linalg.cross(fwd, up))
+        return pos, fwd, up, cam_right
+
+
+def primary_rays(cam: Camera, width: int, height: int, dx, dy):
+    """Rays through screen positions dx in [0,width), dy in [0,height);
+    returns (origins (R,3), directions (R,3))."""
+    dt = dx.dtype
+    pos, fwd, up, cam_right = cam.basis(dt, dx.device)
+    shw = (cam.sensor_diag * width) / torch.sqrt(
+        torch.tensor(float(width * width + height * height), dtype=dt,
+                     device=dx.device))
+    shh = shw * (height / width)
+    center = pos + cam.focal_dist * fwd
+    pixel = (center
+             + (shw * (dx[:, None] / width - 0.5)) * cam_right[None, :]
+             - (shh * (dy[:, None] / height - 0.5)) * up[None, :])
+    eye = torch.broadcast_to(pos[None, :], pixel.shape)
+    return eye, normalize(pixel - eye)

@@ -1,0 +1,306 @@
+"""Frozen copy of the photon pass and the photon grid of
+``gi_raytracer_tpu_torch/render/photon.py`` at commit
+e5c621cb1248e04fcb8b4b38f842b5dd40c8e8a0, without the sharded pass, the
+estimate's dispatch.  Its traces are the reference's own
+(``trace.trace_closest``); ``precision.lower`` rounds the chain's rays
+and photons in the control.
+
+Emission is a wavefront: every slot of a chunk emits at once; a slot's
+retries are masked re-emission rounds (at most ``cfg.photon_retries``)
+that stop once every slot stored; the specular chain runs
+``cfg.photon_depth`` closest-hit traces, and the first diffuse hit after
+it stores the photon.  The uniforms are the threefry streams keyed on
+(seed, chunk, round, light, depth).  The map is a uniform grid fitted to
+the stored photons, refined until its densest cell holds at most
+``window_cap_max`` photons; photons are sorted by cell with a stable
+argsort and ``cell_start`` holds the cell ranges.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .config import RenderConfig
+from .trace import trace_closest
+from . import rng
+from .halton import HaltonSampler
+from .geom import normalize, random_unit_vec, sphere_cap_cos
+from .precision import lower
+from .shading import hit_attributes_uv, material_lookup, secondary_ray
+
+
+@dataclasses.dataclass
+class PhotonMap:
+    pos: torch.Tensor          # (P,3) cell-sorted
+    dir: torch.Tensor          # (P,3)
+    col: torch.Tensor          # (P,3)
+    valid: torch.Tensor        # (P,) bool
+    cell_start: torch.Tensor   # (C+1,) int32 prefix ranges into the arrays
+    grid_min: torch.Tensor     # (3,)
+    inv_cell: torch.Tensor     # (3,) 1 / cell size
+    order: torch.Tensor = None  # (P,) int32 batch -> sorted permutation
+    dims: tuple = (1, 1, 1)
+    window_cap: int = 8
+
+    @property
+    def capacity(self) -> int:
+        return self.pos.shape[0]
+
+    def rebind(self, batch: "PhotonBatch") -> "PhotonMap":
+        """Re-attach a (differentiably re-traced) PhotonBatch to this map's
+        frozen structure (cells, sort order, window cap): the
+        detached-structure estimator, whose photon positions, directions
+        and colours carry gradients back to light and material
+        parameters."""
+        o = self.order.long()
+        return dataclasses.replace(self, pos=batch.pos[o], dir=batch.dir[o],
+                                   col=batch.col[o], valid=batch.stored[o])
+
+
+class PhotonBatch(NamedTuple):
+    pos: torch.Tensor
+    dir: torch.Tensor
+    col: torch.Tensor
+    stored: torch.Tensor
+
+
+class ThreefryUniform:
+    """Default emission uniforms: the JAX emission's threefry key path
+    (``fold_in(key, chunk)``, then ``fold_in(., round)``; the direction
+    from ``stream(., PHOTON_EMIT_X, li)``, a chain step's BSDF uniforms
+    from ``fold_in(stream(., PHOTON_ALPHA, li), depth)``), drawn on
+    ``device``.  A draw depends on its key alone, never on call order."""
+
+    def __init__(self, seed: int, device):
+        self.key = rng.PRNGKey(seed)
+        self.device = torch.device(device)
+
+    def __call__(self, li, chunk, rnd, depth, shape, dtype=torch.float32):
+        kr = rng.fold_in(rng.fold_in(self.key, chunk), rnd)
+        if depth < 0:
+            k = rng.stream(kr, rng.Purpose.PHOTON_EMIT_X, li)
+        else:
+            k = rng.fold_in(rng.stream(kr, rng.Purpose.PHOTON_ALPHA, li),
+                            depth)
+        return rng.uniform(k, shape, dtype, self.device)
+
+
+def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
+                   h_idx, uniform, chunk: int, rnd: int, active,
+                   slot_ids, total_count) -> PhotonBatch:
+    """One emission round for light ``li``, one lane per slot; ``active``
+    marks the slots still retrying.  Depth -1 of ``uniform`` is the
+    emission direction, depth d >= 0 the chain's BSDF uniforms."""
+    R = h_idx.shape[0]
+    lt = scene.lights
+    dt = lt.pos.dtype
+    lpos, lcol, lrad = lt.pos[li], lt.col[li], lt.rad[li]
+    ldir, langle = lt.dir[li], lt.angle[li]
+
+    sx = sampler.sample(0, h_idx).to(dt)
+    sy = sampler.sample(1, h_idx).to(dt)
+    cap = sphere_cap_cos(torch.broadcast_to(ldir, (R, 3)), sx, sy, 1.0, langle)
+    surf = torch.where(langle < 1.0, cap, random_unit_vec(sx, sy))
+    pos = lpos[None, :] + lrad * surf
+
+    u = uniform(li, chunk, rnd, -1, (2, R), dt)
+    emit_dir = sphere_cap_cos(normalize(pos - lpos[None, :]), u[0], u[1],
+                              2.0, langle)
+    col = torch.broadcast_to((0.5 * langle / total_count) * lcol,
+                             (R, 3)).to(dt)
+
+    salt0 = ((li + 1) * 40503 + rnd * 2654435761) & 0xFFFFFFFF
+    hit = trace_closest(scene, pos, emit_dir, salt=salt0, eps=cfg.epsilon,
+                        active=active, ray_id=slot_ids)
+    attrs = hit_attributes_uv(scene, pos, emit_dir, hit.t, hit.prim,
+                              hit.u, hit.v)
+    rough = material_lookup(scene, attrs.mat_id, attrs.uv)[3]
+    alive = active & attrs.valid & (rough < 0.1)     # specular-first only
+
+    ro, rd = lower(pos), lower(emit_dir)
+    stored = torch.zeros(R, dtype=torch.bool, device=pos.device)
+    p_pos = torch.zeros((R, 3), dtype=dt, device=pos.device)
+    p_dir = torch.zeros_like(p_pos)
+    p_col = torch.zeros_like(p_pos)
+    ones = torch.ones((R, 3), dtype=dt, device=pos.device)
+    for depth in range(cfg.photon_depth):
+        salt = (salt0 + (depth + 1) * 7919) & 0xFFFFFFFF
+        uni = uniform(li, chunk, rnd, depth, (4, R), dt)
+        hit = trace_closest(scene, ro, rd, salt=salt, eps=cfg.epsilon,
+                            active=alive, ray_id=slot_ids)
+        attrs = hit_attributes_uv(scene, ro, rd, hit.t, hit.prim, hit.u, hit.v)
+        color, _, alpha, rough, ior = material_lookup(scene, attrs.mat_id,
+                                                      attrs.uv)
+        sec = secondary_ray(rd, attrs.normal, color, alpha, rough, ior,
+                            uni[0], uni[1], uni[2], uni[3], ones)
+        live = alive & attrs.valid
+        col = lower(torch.where(live[:, None], col * sec.f, col))
+        new_ro = attrs.point + (sec.offset_sign * cfg.shadow_bias)[:, None] \
+            * sec.normal
+        # the first diffuse hit after the specular chain stores the photon
+        store_now = live & (rough >= 0.1) & ~stored
+        ro = lower(torch.where(live[:, None], new_ro, ro))
+        rd = lower(torch.where(live[:, None], sec.dir, rd))
+        alive = live & (rough < 0.1)
+        stored = stored | store_now
+        p_pos = torch.where(store_now[:, None], attrs.point, p_pos)
+        p_dir = torch.where(store_now[:, None], sec.dir, p_dir)
+        p_col = torch.where(store_now[:, None], col, p_col)
+    return PhotonBatch(p_pos, p_dir, p_col, stored)
+
+
+def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
+                n_slots: int, total_count: int,
+                differentiable: bool = False) -> PhotonBatch:
+    """First-success emission for slots [start, start+n_slots) of light
+    ``li``: masked retry rounds until every slot stored or
+    ``cfg.photon_retries`` rounds ran (``differentiable``: every round,
+    with no early exit, as the JAX package's ``lax.scan``)."""
+    retries = max(cfg.photon_retries, 1)
+    dev = scene.device
+    dt = scene.lights.pos.dtype
+    slot = start + torch.arange(n_slots, dtype=torch.int64, device=dev)
+    pos = torch.zeros((n_slots, 3), dtype=dt, device=dev)
+    dirs = torch.zeros_like(pos)
+    col = torch.zeros_like(pos)
+    stored = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    for rnd in range(retries):
+        if not differentiable and bool(stored.all()):
+            break
+        h_idx = (slot * retries + rnd) & 0xFFFFFFFF
+        wave = _emit_attempts(scene, cfg, sampler, li, h_idx, uniform, chunk,
+                              rnd, ~stored, slot, total_count)
+        new = wave.stored & ~stored
+        pos = torch.where(new[:, None], wave.pos, pos)
+        dirs = torch.where(new[:, None], wave.dir, dirs)
+        col = torch.where(new[:, None], wave.col, col)
+        stored = stored | new
+    return PhotonBatch(pos, dirs, col, stored)
+
+
+def _no_photons(scene) -> PhotonBatch:
+    """The batch of a scene without lights: one empty slot."""
+    z = torch.zeros((1, 3), dtype=scene.lights.pos.dtype, device=scene.device)
+    return PhotonBatch(z, z, z, torch.zeros(1, dtype=torch.bool,
+                                            device=scene.device))
+
+
+def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
+                  uniform=None, differentiable: bool = False) -> PhotonBatch:
+    """Emit ``count`` (default ``cfg.photons``) photon slots per light in
+    chunks of ``cfg.ray_chunk`` slots.  Returns per-slot arrays; ``stored``
+    is the success mask.
+
+    ``differentiable=False`` (the render path) runs under
+    ``torch.no_grad()`` and stops a chunk's retry rounds once every slot
+    stored.  ``differentiable=True`` keeps autograd on and runs exactly
+    ``cfg.photon_retries`` rounds, so the stored photons' colours and
+    positions carry gradients to the light and material parameters (hit
+    selection detached); on the slots both store, the two batches are
+    equal for the same ``uniform`` draws."""
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        return _trace_photons(scene, cfg, sampler, count, uniform,
+                              differentiable)
+
+
+def _trace_photons(scene, cfg, sampler, count, uniform, differentiable):
+    sampler = sampler or HaltonSampler()
+    count = count or cfg.photons
+    uniform = uniform or ThreefryUniform(cfg.seed, scene.device)
+    L = scene.lights.count
+    if L == 0:
+        return _no_photons(scene)
+    per_chunk = min(max(cfg.ray_chunk, 1), count)
+    parts = []
+    for li in range(L):
+        for start in range(0, count, per_chunk):
+            n = min(per_chunk, count - start)
+            parts.append(_emit_chunk(scene, cfg, sampler, uniform,
+                                     start // per_chunk, start, li, n, count,
+                                     differentiable))
+    return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
+                         for f in PhotonBatch._fields))
+
+
+@torch.no_grad()
+def build_photon_map(batch: PhotonBatch, world_min, world_max,
+                     target_per_cell: float = 4.0, max_dim: int = 1024,
+                     window_cap: int | None = None, window_cap_max: int = 96,
+                     max_cells: int = 33_554_432) -> PhotonMap:
+    """Sort photons into a uniform grid fitted to the stored photons.
+
+    Per-axis resolution follows the photon extent (a planar caustic sheet
+    gets a thin axis).  With ``window_cap=None`` the grid is refined by
+    halving the cell size until the densest cell holds at most
+    ``window_cap_max`` photons (or refinement stops helping, or the cell
+    budget is reached), and ``window_cap`` becomes that occupancy."""
+    dev = batch.pos.device
+    dt = batch.pos.dtype
+    n_stored = max(int(batch.stored.sum()), 1)
+    stored_np = batch.stored.cpu().numpy()
+    pos_np = batch.pos.cpu().numpy().astype(np.float64)
+    if stored_np.any():
+        pmin = pos_np[stored_np].min(0)
+        pmax = pos_np[stored_np].max(0)
+    else:
+        pmin = np.asarray(world_min, np.float64)
+        pmax = np.asarray(world_max, np.float64)
+    span = np.maximum(pmax - pmin, 0.0)
+    pad_w = np.maximum(span.max() * 1e-3, 1e-6)
+    wmin = pmin - pad_w
+    extent = np.maximum(span + 2 * pad_w, 1e-6)
+
+    n_cells_target = max(n_stored / target_per_cell, 1.0)
+    h = float((np.prod(extent) / n_cells_target) ** (1 / 3))
+    wmin_t = torch.tensor(wmin, dtype=dt, device=dev)
+
+    def dims_of(h):
+        d = np.clip(np.ceil(extent / h).astype(np.int64), 1, max_dim)
+        return tuple(int(x) for x in d)
+
+    def cell_ids(h):
+        dims = dims_of(h)
+        inv_cell = np.asarray(dims) / extent
+        gi = ((batch.pos - wmin_t)
+              * torch.tensor(inv_cell, dtype=dt, device=dev)).to(torch.int32)
+        hi = torch.tensor(np.asarray(dims) - 1, dtype=torch.int32, device=dev)
+        gi = torch.minimum(torch.clamp(gi, min=0), hi).long()
+        cid = (gi[:, 0] * dims[1] + gi[:, 1]) * dims[2] + gi[:, 2]
+        C = dims[0] * dims[1] * dims[2]
+        return torch.where(batch.stored, cid, C), dims, inv_cell, C
+
+    if window_cap is None:
+        prev = None
+        while True:
+            cid, dims, inv_cell, C = cell_ids(h)
+            occ_max = int(torch.bincount(cid[cid < C], minlength=1).max())
+            if occ_max <= window_cap_max:
+                break
+            if prev is not None and occ_max >= prev[1]:
+                h = prev[0]    # refinement stopped helping: undo it
+                cid, dims, inv_cell, C = cell_ids(h)
+                break
+            nxt = dims_of(h / 2)
+            if (np.prod(np.asarray(nxt, np.int64)) > max_cells
+                    or nxt == dims):
+                break
+            prev = (h, occ_max)
+            h = h / 2
+        window_cap = int(np.clip(occ_max, 1, window_cap_max))
+    else:
+        cid, dims, inv_cell, C = cell_ids(h)
+
+    order = torch.argsort(cid, stable=True)
+    cell_start = torch.searchsorted(
+        cid[order], torch.arange(C + 1, dtype=cid.dtype, device=dev),
+        side="left").to(torch.int32)
+    return PhotonMap(pos=batch.pos[order], dir=batch.dir[order],
+                     col=batch.col[order], valid=batch.stored[order],
+                     cell_start=cell_start, grid_min=wmin_t,
+                     inv_cell=torch.tensor(inv_cell, dtype=dt, device=dev),
+                     order=order.to(torch.int32), dims=dims,
+                     window_cap=window_cap)
