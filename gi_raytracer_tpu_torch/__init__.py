@@ -11,6 +11,7 @@ mirrors its module names so each counterpart is easy to find:
               kNN caustic estimate (plain torch + CUDA kernel), height fog
   io/         PNG output (standard library) and render checkpoints
   cli.py      ``python -m gi_raytracer_tpu_torch.cli render scene.scn``
+  telemetry.py  spans and counters, recorded while a torch profiler runs
   csrc/       CUDA C++ sources for sm_90a, built by nvcc at first use
   convert.py  carries scenes, photon batches/maps and configs across from
               numpy arrays (used by the parity tests)

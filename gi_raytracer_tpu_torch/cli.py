@@ -37,11 +37,15 @@ differs.  ``--preview`` writes the tonemapped image after every wave.
 
 ``render --profile DIR`` wraps the render and its tonemap (not the scene
 build or the photon pass) in ``torch.profiler`` and writes the trace to
-``DIR/<worker>.<ns>.pt.trace.json``, which TensorBoard's profiler plugin
-and ``chrome://tracing`` read: host ops, and on the card its kernels.
-It acts on the single-process render only (not with ``--devices`` or
-``--distributed``), as in the JAX package, and leaves the image, the
-ray count and the checkpoint as they are without it.
+``DIR/<worker>.<ns>.pt.trace.json``, which TensorBoard's profiler plugin,
+Perfetto and ``chrome://tracing`` read: on the card its kernels, copies
+and fills (the device alone), on the CPU the host's ops, and a row of the
+program's spans (frame, waves, syncs, K3 calls: ``telemetry``) on the
+same clock.  It prints each span's count and self time and, on the card,
+the device's idle seconds by the span open when each gap began.  It acts
+on the single-process render only (not with ``--devices`` or
+``--distributed``), as in the JAX package, and leaves the image, the ray
+count and the checkpoint as they are without it.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import glob
 import hashlib
 import json
 import os
+import re
 import time
 
 import numpy as np
@@ -65,24 +70,84 @@ def _sync(device):
 
 @contextlib.contextmanager
 def _profiled(trace_dir, device):
-    """torch.profiler over the block, ended by a synchronize: host ops,
-    and on the card the kernels the block launched.  Prints the path of
-    the trace it writes to ``trace_dir``."""
+    """torch.profiler over the block, ended by a synchronize: on the card
+    the device alone (its kernels, copies and fills, as the benchmark
+    traces it), on the CPU the host's ops.  The program records its spans
+    meanwhile (``telemetry``); they are added to the trace it writes to
+    ``trace_dir`` on a row of their own, on the trace's clock.  Prints the
+    trace's path, each span's count and self time, and the device's idle
+    seconds by the span open when each gap began."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 
-    acts = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
+    from . import telemetry
+
+    on_card = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU]
     worker = f"render_{os.getpid()}"
+    telemetry.reset()
     with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
-            trace_dir, worker_name=worker)):
+            trace_dir, worker_name=worker)) as prof:
         yield
         _sync(device)
     # the newest of this process's traces: the name ends in its time in ns
     path = max(glob.glob(os.path.join(glob.escape(trace_dir),
                                       f"{worker}.*.pt.trace.json")))
+    spans = telemetry.records()
     print(f"[profile] torch.profiler trace written to {path}")
+    if not _add_spans(path, spans):
+        print("[profile] the program's spans were not added: no close of "
+              "the trace's events found in its tail")
+    for line in telemetry.report(spans, telemetry.device_events(prof)
+                                 if on_card else []):
+        print(f"[profile] {line}")
+    telemetry.reset()
+
+
+_BASE = re.compile(rb'"baseTimeNanoseconds":\s*(\d+)')
+# a close of a list of objects, followed by more keys of the trace
+_LIST_END = re.compile(rb"\}\s*(\])\s*,")
+
+
+def _events_end(tail: bytes) -> int:
+    """The offset in ``tail`` of the bracket that closes the trace's
+    ``traceEvents``: the last close of a list of objects after which the
+    rest of the file is the trace's closing keys (``"traceName"`` and, by
+    torch's version, the logger's lists and the base time); -1 if none."""
+    for m in reversed(list(_LIST_END.finditer(tail))):
+        try:
+            json.loads(b"{" + tail[m.end():])
+        except ValueError:
+            continue
+        return m.start(1)
+    return -1
+
+
+def _add_spans(path, spans) -> bool:
+    """Add ``spans`` to the events of the profiler's Chrome trace at
+    ``path``, on its clock (its ``baseTimeNanoseconds``, at the head or
+    the tail of the file by torch's version).  The events go in before
+    the bracket that closes ``traceEvents``, and only the file's tail is
+    written again (a trace of many kernels runs to hundreds of MB).
+    False, and the file as it was, where its tail holds no such
+    bracket."""
+    from . import telemetry
+
+    with open(path, "rb+") as f:
+        head = f.read(1 << 16)
+        size = f.seek(0, os.SEEK_END)
+        start = max(size - (1 << 16), 0)
+        f.seek(start)
+        tail = f.read()
+        at = _events_end(tail)
+        if at < 0:
+            return False
+        base = _BASE.search(head) or _BASE.search(tail)
+        events = telemetry.chrome_events(
+            spans, int(base.group(1)) if base else 0, os.getpid())
+        f.seek(start + at)
+        f.write(b"," + json.dumps(events)[1:-1].encode() + tail[at:])
+    return True
 
 
 def _build(args, echo=print):

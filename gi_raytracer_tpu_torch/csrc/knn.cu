@@ -326,7 +326,8 @@ gi_knn_kernel(const float* __restrict__ qpos, const float* __restrict__ qdir,
 // a window of at most `capacity` candidates is staged in the dynamic
 // shared memory s_bits, a larger one is read from device memory each pass.
 // The last block to finish (counters[2] counts them) keeps the launch's
-// two counts in counters[3..4] and zeroes counters[0..2] for the next one
+// two counts in counters[3..4], adds them to totals[0..1] where totals is
+// not null, and zeroes counters[0..2] for the next one
 __global__ void __launch_bounds__(GI_KNN_FOCAL_THREADS, 1)
 gi_knn_focal_kernel(const float* __restrict__ qpos,
                     const float* __restrict__ qdir,
@@ -338,6 +339,7 @@ gi_knn_focal_kernel(const float* __restrict__ qpos,
                     int nz, float gx, float gy, float gz, float ix, float iy,
                     float iz, int k, const int32_t* __restrict__ queue,
                     int32_t* __restrict__ counters, int capacity,
+                    long long* __restrict__ totals,
                     float* __restrict__ out) {
   extern __shared__ uint32_t s_bits[];
   __shared__ int s_off[28];  // [27]: the window's candidates
@@ -357,9 +359,15 @@ gi_knn_focal_kernel(const float* __restrict__ qpos,
       if (tid == 0) {
         __threadfence();
         if (atomicAdd(counters + 2, 1) == (int)gridDim.x - 1) {
-          counters[3] = atomicExch(counters, 0);
-          counters[4] = atomicExch(counters + 1, 0);
+          const int queued = atomicExch(counters, 0);
+          const int taken = atomicExch(counters + 1, 0);
+          counters[3] = queued;
+          counters[4] = taken;
           counters[2] = 0;
+          if (totals) {  // one launch at a time on one stream adds here
+            totals[0] += queued;
+            totals[1] += taken;
+          }
         }
       }
       return;
@@ -546,15 +554,16 @@ cudaError_t focal_shape(FocalShape* out) {
 // int32, zero before the first launch; each launch leaves counters[0..2]
 // zero and its queued and taken counts in counters[3..4]) are the caller's
 // scratch, used by one launch at a time.  A refused launch leaves the
-// counters zeroed too
+// counters zeroed too.  totals: null, or two int64 (memory the card can
+// write, such as pinned host memory) the launch adds its two counts to
 extern "C" int gi_knn_launch(const float* qpos, const float* qdir, int n_q,
                              const float* ppos, const float* pdir,
                              const float* pcol, const uint8_t* pvalid,
                              const int32_t* cell_start, int nx, int ny,
                              int nz, float gx, float gy, float gz, float ix,
                              float iy, float iz, int k, int32_t* queue,
-                             int32_t* counters, float* out,
-                             cudaStream_t stream) {
+                             int32_t* counters, long long* totals,
+                             float* out, cudaStream_t stream) {
   if (k < 1 || k > GI_KNN_KMAX) return (int)cudaErrorInvalidValue;
   FocalShape shape;
   cudaError_t err = focal_shape(&shape);
@@ -569,7 +578,7 @@ extern "C" int gi_knn_launch(const float* qpos, const float* qdir, int n_q,
                           stream>>>(qpos, qdir, ppos, pdir, pcol, pvalid,
                                     cell_start, nx, ny, nz, gx, gy, gz, ix,
                                     iy, iz, k, queue, counters,
-                                    shape.dyn / 4, out);
+                                    shape.dyn / 4, totals, out);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess)  // the queue was filled but not spent

@@ -54,7 +54,7 @@ _SIGNATURES = {
                                     _F, _I, _I, _I] + [_VP] * 5,
     "gi_mega_info": [_I, _VP],
     "gi_knn_launch": [_VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                      _F, _F, _F, _F, _F, _F, _I, _VP, _VP, _VP, _VP],
+                      _F, _F, _F, _F, _F, _F, _I, _VP, _VP, _VP, _VP, _VP],
     "gi_knn_info": [_VP],
     "gi_stream_launch": [_VP] * 9 + [_I, _I, _I, _U, _F, _I, _I]
     + [_VP] * 5,

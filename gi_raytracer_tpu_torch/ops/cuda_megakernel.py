@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from ..render.shading import build_prim_rows, PR_IOR, PR_W
 from ..scene.types import dataclass_tensors, derived
 from . import _cuda
@@ -211,8 +212,9 @@ def _caustic_estimate(photon_map, cfg, pts, dirs, wts):
     dead slots (far-sentinel points, zero weight) compacted out first."""
     from ..render.photon import sample_photons_backend
 
-    live = torch.nonzero((pts[:, 0] < FAR)
-                         & (wts.max(dim=-1).values > 0)).squeeze(1)
+    with telemetry.sync("mega.live"):
+        live = torch.nonzero((pts[:, 0] < FAR)
+                             & (wts.max(dim=-1).values > 0)).squeeze(1)
     est = torch.zeros_like(pts)
     if live.numel():
         est[live] = sample_photons_backend(photon_map, pts[live], dirs[live],

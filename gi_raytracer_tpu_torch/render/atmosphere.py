@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..config import RenderConfig
 from ..sampling.rng import hash_u01
 from .geom import random_unit_vec
@@ -100,7 +101,8 @@ def _march(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
     found = torch.zeros(R, dtype=torch.bool, device=dev)
     t_hit = torch.zeros(R, dtype=ro.dtype, device=dev)
     n_steps = int(cfg.raymarch_max_steps)
-    lanes = torch.nonzero(has & (t0 < tmax)).squeeze(1)
+    with telemetry.sync("fog.lanes"):
+        lanes = torch.nonzero(has & (t0 < tmax)).squeeze(1)
     for i0 in range(0, n_steps, MARCH_BLOCK):
         if not lanes.numel():
             break

@@ -7,6 +7,7 @@ import dataclasses
 
 import torch
 
+from .. import telemetry
 from .geom import normalize
 
 SENSOR_DIAG = 0.035 * 240 * 2
@@ -24,10 +25,14 @@ class Camera:
     def basis(self, dtype=torch.float32, device=None):
         """(pos, forward, up, cam_right).  ``pos`` and ``look_at`` may be
         tensors that carry a gradient (``torch.as_tensor`` keeps it)."""
-        pos = torch.as_tensor(self.pos, dtype=dtype, device=device)
-        fwd = normalize(torch.as_tensor(self.look_at, dtype=dtype,
-                                        device=device) - pos)
-        up0 = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device)
+        # a copy of host numbers to the card waits for it: a sync each
+        with telemetry.sync("camera.pos"):
+            pos = torch.as_tensor(self.pos, dtype=dtype, device=device)
+        with telemetry.sync("camera.look_at"):
+            at = torch.as_tensor(self.look_at, dtype=dtype, device=device)
+        fwd = normalize(at - pos)
+        with telemetry.sync("camera.up"):
+            up0 = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=device)
         right = normalize(torch.linalg.cross(up0, fwd))
         up = torch.linalg.cross(fwd, right)
         cam_right = normalize(torch.linalg.cross(fwd, up))
@@ -39,9 +44,10 @@ def primary_rays(cam: Camera, width: int, height: int, dx, dy):
     returns (origins (R,3), directions (R,3))."""
     dt = dx.dtype
     pos, fwd, up, cam_right = cam.basis(dt, dx.device)
-    shw = (cam.sensor_diag * width) / torch.sqrt(
-        torch.tensor(float(width * width + height * height), dtype=dt,
-                     device=dx.device))
+    with telemetry.sync("camera.diag"):
+        diag2 = torch.tensor(float(width * width + height * height),
+                             dtype=dt, device=dx.device)
+    shw = (cam.sensor_diag * width) / torch.sqrt(diag2)
     shh = shw * (height / width)
     center = pos + cam.focal_dist * fwd
     pixel = (center

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import RenderConfig
 from ..ops import _cuda
 from ..ops.intersect import trace_closest_rows, trace_any
@@ -127,7 +128,8 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
     dt = ro.dtype
     L = scene.lights.count
     rows = prim_rows if prim_rows is not None else build_prim_rows(scene)
-    ambient = torch.tensor(cfg.ambient, dtype=dt, device=dev)
+    with telemetry.sync("wave.ambient"):
+        ambient = torch.tensor(cfg.ambient, dtype=dt, device=dev)
     lane = ((lane_ids.to(torch.int64) & 0xFFFFFFFF) if lane_ids is not None
             else (int(lane_base) + torch.arange(R, device=dev)) & 0xFFFFFFFF)
 
@@ -354,11 +356,15 @@ class Renderer:
         """One wave of the band -> ((Hb, W, 3) raster radiance, ray
         count)."""
         N = self.width * self.height
-        ro, rd, sx_all, sy_all = self.wave_inputs(wave)
-        out, (n_c, n_s) = dispatch_wave(
-            self.scene, self.cfg, ro, rd, sx_all, sy_all, 0, self.photon_map,
-            lane_base=wave * N + self._lane0, prim_rows=self.prim_rows())
-        c = out[self._inv_perm_t].reshape(self.band_height, self.width, 3)
+        with telemetry.span("wave.inputs"):
+            ro, rd, sx_all, sy_all = self.wave_inputs(wave)
+        with telemetry.span("wave.trace"):
+            out, (n_c, n_s) = dispatch_wave(
+                self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
+                self.photon_map, lane_base=wave * N + self._lane0,
+                prim_rows=self.prim_rows())
+            c = out[self._inv_perm_t].reshape(self.band_height, self.width,
+                                              3)
         return c, n_c + n_s
 
     def active_blocks(self, active):
@@ -366,7 +372,8 @@ class Renderer:
         ``active`` (Hb, W) that hold an active pixel."""
         H, W = self.band_height, self.width
         act = active.reshape(H // 16, 16, W // 16, 16).any(3).any(1)
-        return torch.nonzero(act.reshape(-1)).squeeze(1)
+        with telemetry.sync("wave.blocks"):
+            return torch.nonzero(act.reshape(-1)).squeeze(1)
 
     def block_wave(self, wave: int, blocks):
         """One wave over the band's 16x16 blocks ``blocks`` (block-major
@@ -376,19 +383,24 @@ class Renderer:
         traced lanes)."""
         H, W = self.band_height, self.width
         Nb = H * W
-        pos = (blocks[:, None] * 256
-               + torch.arange(256, device=self.device)[None, :]).reshape(-1)
-        c = torch.zeros((Nb, 3), dtype=self.dtype, device=self.device)
-        if pos.numel() == 0:        # a quiet band traces nothing
-            return (c.reshape(H, W, 3),
-                    torch.zeros((), dtype=torch.int64, device=self.device))
-        ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos)
-        out, (n_c, n_s) = dispatch_wave(
-            self.scene, self.cfg, ro, rd, sx_all, sy_all, 0, self.photon_map,
-            lane_ids=(wave * self.width * self.height + self._lane0 + pos)
-            & 0xFFFFFFFF, prim_rows=self.prim_rows())
-        c[pos] = out.to(c.dtype)
-        return c[self._inv_perm_t].reshape(H, W, 3), n_c + n_s
+        with telemetry.span("wave.inputs"):
+            pos = (blocks[:, None] * 256
+                   + torch.arange(256, device=self.device)[None, :]
+                   ).reshape(-1)
+            c = torch.zeros((Nb, 3), dtype=self.dtype, device=self.device)
+            if pos.numel() == 0:        # a quiet band traces nothing
+                return (c.reshape(H, W, 3),
+                        torch.zeros((), dtype=torch.int64,
+                                    device=self.device))
+            ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos)
+        with telemetry.span("wave.trace"):
+            out, (n_c, n_s) = dispatch_wave(
+                self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
+                self.photon_map, lane_ids=(wave * self.width * self.height
+                                           + self._lane0 + pos) & 0xFFFFFFFF,
+                prim_rows=self.prim_rows())
+            c[pos] = out.to(c.dtype)
+            return c[self._inv_perm_t].reshape(H, W, 3), n_c + n_s
 
     def state0(self):
         """Fresh accumulation state (running mean starts at 0.5)."""
@@ -400,7 +412,7 @@ class Renderer:
             "samps": torch.zeros((H, W), dtype=torch.int32, device=dev),
             "active": torch.ones((H, W), dtype=torch.bool, device=dev),
             "wave": 0,
-            "rays": torch.zeros((), dtype=torch.float32, device=dev),
+            "rays": torch.zeros((), dtype=torch.int64, device=dev),
         }
 
     def _accumulate(self, st, c, s: int):
@@ -427,43 +439,53 @@ class Renderer:
         ``on_wave(state, wave)`` is called after every wave with the whole
         accumulation state, which can be saved and passed back as
         ``state=`` to resume the render (the checkpoint hook)."""
-        st = self.start(state)
-        for s in range(int(st["wave"]), self.cfg.max_samples):
-            if not bool(st["active"].any()):
-                break
-            st = self.step(st, s)
-            if verbose:
-                print(f"wave {s}: active {int(st['active'].sum())}/"
-                      f"{st['active'].numel()}")
-            if on_wave is not None:
-                on_wave(st, s)
+        with telemetry.span("frame"):
+            st = self.start(state)
+            for s in range(int(st["wave"]), self.cfg.max_samples):
+                with telemetry.sync("frame.active"):
+                    go = bool(st["active"].any())
+                if not go:
+                    break
+                st = self.step(st, s)
+                if verbose:
+                    with telemetry.sync("frame.verbose"):
+                        print(f"wave {s}: active {int(st['active'].sum())}/"
+                              f"{st['active'].numel()}")
+                if on_wave is not None:
+                    on_wave(st, s)
         return (st["mean"], st) if return_state else st["mean"]
 
     def start(self, state=None):
-        """The state a render starts from (``state0`` or ``state``, with a
-        ray counter), and an empty ``wave_blocks`` record."""
+        """The state a render starts from (``state0`` or ``state``, with an
+        int64 ray counter: an older checkpoint's float32 one is cast, a
+        missing one starts at 0), and an empty ``wave_blocks`` record."""
         st = state if state is not None else self.state0()
-        if "rays" not in st:    # resume from an old checkpoint
-            st = dict(st, rays=torch.zeros((), dtype=torch.float32,
-                                           device=self.device))
+        rays = st.get("rays")
+        if rays is None:
+            rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        elif rays.dtype != torch.int64:
+            rays = rays.to(torch.int64)
         self.wave_blocks = []
-        return st
+        return dict(st, rays=rays)
 
     def step(self, st, s: int, reduce_rays=None):
         """Wave ``s`` of a render: trace the band (or its active blocks)
         and fold it into the state.  ``reduce_rays(n)`` turns the wave's
         ray count into the one added to the counter (the ranks' sum, in a
         sharded render)."""
-        if self.block_adaptive:
-            blocks = self.active_blocks(st["active"])
-            c, rays = self.block_wave(s, blocks)
-            self.wave_blocks.append(blocks.numel())
-        else:
-            c, rays = self.wave_radiance(s)
-        if reduce_rays is not None:
-            rays = reduce_rays(rays)
-        st = self._accumulate(st, c, s)
-        st["rays"] = st["rays"] + rays.to(torch.float32)
+        with telemetry.span("wave", wave=s):
+            if self.block_adaptive:
+                with telemetry.span("wave.inputs"):
+                    blocks = self.active_blocks(st["active"])
+                c, rays = self.block_wave(s, blocks)
+                self.wave_blocks.append(blocks.numel())
+            else:
+                c, rays = self.wave_radiance(s)
+            with telemetry.span("wave.fold"):
+                if reduce_rays is not None:
+                    rays = reduce_rays(rays)
+                st = self._accumulate(st, c, s)
+                st["rays"] = st["rays"] + rays
         return st
 
     def tonemap(self, linear):

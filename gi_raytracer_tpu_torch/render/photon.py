@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import RenderConfig
 from ..ops.intersect import trace_closest
 from ..sampling import rng
@@ -172,7 +173,10 @@ def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
     """First-success emission for slots [start, start+n_slots) of light
     ``li``: masked retry rounds until every slot stored or
     ``cfg.photon_retries`` rounds ran (``differentiable``: every round,
-    with no early exit, as the JAX package's ``lax.scan``)."""
+    with no early exit, as the JAX package's ``lax.scan``).  Each round
+    traces every slot of the chunk (its span's ``lanes``); ``live``, the
+    slots still unstored at its start, comes from the count that decides
+    the early exit (not taken when ``differentiable``)."""
     retries = max(cfg.photon_retries, 1)
     dev = scene.device
     dt = scene.lights.pos.dtype
@@ -182,16 +186,27 @@ def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
     col = torch.zeros_like(pos)
     stored = torch.zeros(n_slots, dtype=torch.bool, device=dev)
     for rnd in range(retries):
-        if not differentiable and bool(stored.all()):
-            break
-        h_idx = (slot * retries + rnd) & 0xFFFFFFFF
-        wave = _emit_attempts(scene, cfg, sampler, li, h_idx, uniform, chunk,
-                              rnd, ~stored, slot, total_count)
-        new = wave.stored & ~stored
-        pos = torch.where(new[:, None], wave.pos, pos)
-        dirs = torch.where(new[:, None], wave.dir, dirs)
-        col = torch.where(new[:, None], wave.col, col)
-        stored = stored | new
+        live = {}
+        if not differentiable:
+            # the count costs a kernel more than a test of all() (the sum
+            # casts the mask first); a round negates the mask once, not
+            # twice, so it issues as many operations as before
+            with telemetry.sync("photons.live"):
+                n_stored = int(stored.sum())
+            if n_stored == n_slots:
+                break
+            live = {"live": n_slots - n_stored}
+        with telemetry.span("photons.round", round=rnd, lanes=n_slots,
+                            **live):
+            h_idx = (slot * retries + rnd) & 0xFFFFFFFF
+            unstored = ~stored
+            wave = _emit_attempts(scene, cfg, sampler, li, h_idx, uniform,
+                                  chunk, rnd, unstored, slot, total_count)
+            new = wave.stored & unstored
+            pos = torch.where(new[:, None], wave.pos, pos)
+            dirs = torch.where(new[:, None], wave.dir, dirs)
+            col = torch.where(new[:, None], wave.col, col)
+            stored = stored | new
     return PhotonBatch(pos, dirs, col, stored)
 
 
@@ -215,7 +230,8 @@ def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
     positions carry gradients to the light and material parameters (hit
     selection detached); on the slots both store, the two batches are
     equal for the same ``uniform`` draws."""
-    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()), \
+            telemetry.span("photons"):
         return _trace_photons(scene, cfg, sampler, count, uniform,
                               differentiable)
 
@@ -280,11 +296,37 @@ def build_photon_map(batch: PhotonBatch, world_min, world_max,
     halving the cell size until the densest cell holds at most
     ``window_cap_max`` photons (or refinement stops helping, or the cell
     budget is reached), and ``window_cap`` becomes that occupancy."""
+    with telemetry.span("photons.grid"):
+        return _build_photon_map(batch, world_min, world_max,
+                                 target_per_cell, max_dim, window_cap,
+                                 window_cap_max, max_cells)
+
+
+def _densest_cell(cid, C: int) -> int:
+    """The most photons in one of the C cells (``cid`` C: no cell), a
+    histogram of the grid's cells freed on return."""
+    with telemetry.sync("grid.mask"):
+        in_cells = cid[cid < C]
+    # bincount reads its input's least and largest value: two syncs
+    with telemetry.sync("grid.bincount.min"), \
+            telemetry.sync("grid.bincount.max"):
+        occ = torch.bincount(in_cells, minlength=1)
+    with telemetry.sync("grid.occupancy"):
+        return int(occ.max())
+
+
+def _build_photon_map(batch, world_min, world_max, target_per_cell, max_dim,
+                      window_cap, window_cap_max, max_cells):
     dev = batch.pos.device
     dt = batch.pos.dtype
-    n_stored = max(int(batch.stored.sum()), 1)
-    stored_np = batch.stored.cpu().numpy()
-    pos_np = batch.pos.cpu().numpy().astype(np.float64)
+    # each sync span below marks one wait of the host for the card (a read
+    # of a result, a copy of a host array to the card)
+    with telemetry.sync("grid.count"):
+        n_stored = max(int(batch.stored.sum()), 1)
+    with telemetry.sync("grid.stored"):
+        stored_np = batch.stored.cpu().numpy()
+    with telemetry.sync("grid.pos"):
+        pos_np = batch.pos.cpu().numpy().astype(np.float64)
     if stored_np.any():
         pmin = pos_np[stored_np].min(0)
         pmax = pos_np[stored_np].max(0)
@@ -298,7 +340,8 @@ def build_photon_map(batch: PhotonBatch, world_min, world_max,
 
     n_cells_target = max(n_stored / target_per_cell, 1.0)
     h = float((np.prod(extent) / n_cells_target) ** (1 / 3))
-    wmin_t = torch.tensor(wmin, dtype=dt, device=dev)
+    with telemetry.sync("grid.origin"):
+        wmin_t = torch.tensor(wmin, dtype=dt, device=dev)
 
     def dims_of(h):
         d = np.clip(np.ceil(extent / h).astype(np.int64), 1, max_dim)
@@ -307,10 +350,13 @@ def build_photon_map(batch: PhotonBatch, world_min, world_max,
     def cell_ids(h):
         dims = dims_of(h)
         inv_cell = np.asarray(dims) / extent
-        gi = ((batch.pos - wmin_t)
-              * torch.tensor(inv_cell, dtype=dt, device=dev)).to(torch.int32)
-        hi = torch.tensor(np.asarray(dims) - 1, dtype=torch.int32, device=dev)
-        gi = torch.minimum(torch.clamp(gi, min=0), hi).long()
+        with telemetry.sync("grid.scale"):
+            scale = torch.tensor(inv_cell, dtype=dt, device=dev)
+        with telemetry.sync("grid.dims"):
+            hi = torch.tensor(np.asarray(dims) - 1, dtype=torch.int32,
+                              device=dev)
+        gi = torch.minimum(torch.clamp(((batch.pos - wmin_t) * scale)
+                                       .to(torch.int32), min=0), hi).long()
         cid = (gi[:, 0] * dims[1] + gi[:, 1]) * dims[2] + gi[:, 2]
         C = dims[0] * dims[1] * dims[2]
         return torch.where(batch.stored, cid, C), dims, inv_cell, C
@@ -319,7 +365,7 @@ def build_photon_map(batch: PhotonBatch, world_min, world_max,
         prev = None
         while True:
             cid, dims, inv_cell, C = cell_ids(h)
-            occ_max = int(torch.bincount(cid[cid < C], minlength=1).max())
+            occ_max = _densest_cell(cid, C)
             if occ_max <= window_cap_max:
                 break
             if prev is not None and occ_max >= prev[1]:
@@ -340,12 +386,13 @@ def build_photon_map(batch: PhotonBatch, world_min, world_max,
     cell_start = torch.searchsorted(
         cid[order], torch.arange(C + 1, dtype=cid.dtype, device=dev),
         side="left").to(torch.int32)
+    with telemetry.sync("grid.scale"):
+        inv_cell_t = torch.tensor(inv_cell, dtype=dt, device=dev)
     return PhotonMap(pos=batch.pos[order], dir=batch.dir[order],
                      col=batch.col[order], valid=batch.stored[order],
                      cell_start=cell_start, grid_min=wmin_t,
-                     inv_cell=torch.tensor(inv_cell, dtype=dt, device=dev),
-                     order=order.to(torch.int32), dims=dims,
-                     window_cap=window_cap)
+                     inv_cell=inv_cell_t, order=order.to(torch.int32),
+                     dims=dims, window_cap=window_cap)
 
 
 KNN_BACKENDS = ("auto", "pallas", "chunkrow", "jnp")

@@ -55,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ops import _cuda
 from ..scene.types import derived
 from .geom import PI
@@ -73,7 +74,8 @@ BLOCK_ENTRIES = 16_777_216
 
 def _cells(pm, point):
     """Query cell coords: truncation toward zero, then clamp (int64)."""
-    dims = torch.tensor(pm.dims, device=point.device)
+    with telemetry.sync("knn.dims"):
+        dims = torch.tensor(pm.dims, device=point.device)
     g = (point - pm.grid_min[None, :]) * pm.inv_cell[None, :]
     g = torch.clamp(g, -1.0, float(max(pm.dims)))
     return torch.minimum(torch.clamp(g.to(torch.int32), min=0),
@@ -131,7 +133,8 @@ def _block_estimate(pm, point, direction, k, cap=None):
     start, cnt, take = _window_takes(pm, point, cap)
     end = torch.cumsum(take, 1)
     n_got = end[:, -1]
-    width = max(int(n_got.max()), k)
+    with telemetry.sync("knn.plain.width"):
+        width = max(int(n_got.max()), k)
     m = torch.arange(width, device=point.device).expand(R, width) \
         .contiguous()
     cell = torch.clamp(torch.searchsorted(end, m, right=True), max=26)
@@ -185,10 +188,12 @@ def _plain_blocks(pm, point, k, cap=None, lane_chunk=None):
     candidate slots, so that one focal window pads no block of small
     ones."""
     n = _window_takes(pm, point, cap)[2].sum(1)
-    live = torch.nonzero((n > 0) & (point[:, 0] < FAR)).squeeze(1)
+    with telemetry.sync("knn.plain.live"):
+        live = torch.nonzero((n > 0) & (point[:, 0] < FAR)).squeeze(1)
     n, order = torch.sort(n[live], stable=True)
     live = live[order]
-    width = np.maximum(n.cpu().numpy(), k)
+    with telemetry.sync("knn.plain.widths"):
+        width = np.maximum(n.cpu().numpy(), k)
     lanes = lane_chunk or BLOCK_LANES
     blocks, s = [], 0
     while s < width.shape[0]:
@@ -286,8 +291,9 @@ class _KnnEstimate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         point, direction = ctx.saved_tensors
-        grads = _estimate_vjp(ctx.pm, ctx.k, point, direction, grad,
-                             ctx.needs_input_grad[2:])
+        with telemetry.span("knn.vjp", queries=point.shape[0]):
+            grads = _estimate_vjp(ctx.pm, ctx.k, point, direction, grad,
+                                 ctx.needs_input_grad[2:])
         return (None, None, *grads)
 
 
@@ -331,11 +337,14 @@ def knn_info() -> dict:
 
 def knn_counts(pm) -> tuple:
     """(queries queued for the focal tier, queue entries the focal blocks
-    took) by the last K3 call on ``pm`` (a host sync; 0, 0 before one)."""
+    took) by the last K3 call on ``pm`` (a host sync; 0, 0 before one).
+    ``telemetry.k3_counts`` sums them over the calls made while
+    recording, with no sync."""
     scratch = pm.__dict__.get("_knn_scratch")
     if scratch is None:
         return 0, 0
-    return tuple(scratch[3:5].tolist())
+    with telemetry.sync("knn.counts"):
+        return tuple(scratch[3:5].tolist())
 
 
 def _knn_scratch(pm, n_q, device):
@@ -374,8 +383,10 @@ def _knn_tables(pm):
         if any(x.device != t[0].device for x in t):
             raise ValueError("knn: the photon map's tensors lie on more "
                              "than one device")
-        return t + ([float(x) for x in pm.grid_min.tolist()],
-                    [float(x) for x in pm.inv_cell.tolist()])
+        with telemetry.sync("knn.tables.origin"):
+            g = [float(x) for x in pm.grid_min.tolist()]
+        with telemetry.sync("knn.tables.scale"):
+            return t + (g, [float(x) for x in pm.inv_cell.tolist()])
 
     return derived(pm, "_knn_tables", (pm.pos, pm.dir, pm.col, pm.valid,
                                        pm.cell_start, pm.grid_min,
@@ -398,12 +409,15 @@ def _knn_cuda(pm, point, direction, k):
     if R == 0:
         return out.to(point.dtype)
     scratch = _knn_scratch(pm, R, q.device).data_ptr()
-    code = _cuda.lib().gi_knn_launch(
-        q.data_ptr(), qd.data_ptr(), R, ppos.data_ptr(), pdir.data_ptr(),
-        pcol.data_ptr(), pval.data_ptr(), cs.data_ptr(), nx, ny, nz,
-        g[0], g[1], g[2], iv[0], iv[1], iv[2], int(k),
-        scratch + 4 * COUNTERS, scratch, out.data_ptr(),
-        _cuda.stream_ptr(q.device))
+    with telemetry.span("knn", queries=R) as sp:
+        # while recording, the launch adds its tier counts to the totals
+        code = _cuda.lib().gi_knn_launch(
+            q.data_ptr(), qd.data_ptr(), R, ppos.data_ptr(), pdir.data_ptr(),
+            pcol.data_ptr(), pval.data_ptr(), cs.data_ptr(), nx, ny, nz,
+            g[0], g[1], g[2], iv[0], iv[1], iv[2], int(k),
+            scratch + 4 * COUNTERS, scratch,
+            telemetry.k3_totals_ptr() if sp is not None else None,
+            out.data_ptr(), _cuda.stream_ptr(q.device))
     _cuda.check(code, "gi_knn_launch")
     _cuda.launches["knn"] += 1
     return out.to(point.dtype)

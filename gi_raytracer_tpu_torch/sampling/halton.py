@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from .rng import M32, mul32
 
 
@@ -147,8 +148,9 @@ class HaltonSampler:
     def _dev(self, name, p, arr, device):
         key = (name, p, device)
         if key not in self._dev_cache:
-            self._dev_cache[key] = torch.as_tensor(
-                np.asarray(arr, np.int64), device=device)
+            with telemetry.sync("halton.table"):
+                self._dev_cache[key] = torch.as_tensor(
+                    np.asarray(arr, np.int64), device=device)
         return self._dev_cache[key]
 
     def _sample_table(self, p: int, index: torch.Tensor) -> torch.Tensor:

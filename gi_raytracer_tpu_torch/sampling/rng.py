@@ -20,6 +20,8 @@ import enum
 
 import torch
 
+from .. import telemetry
+
 M32 = 0xFFFFFFFF
 
 
@@ -45,7 +47,8 @@ def u32(x, device=None) -> torch.Tensor:
     """A uint32 value (int, int32 bit pattern or int64) as int64 in
     [0, 2**32)."""
     if not isinstance(x, torch.Tensor):
-        x = torch.as_tensor(x, dtype=torch.int64, device=device)
+        with telemetry.sync("rng.u32"):     # a copy to the card waits
+            x = torch.as_tensor(x, dtype=torch.int64, device=device)
     return x.to(torch.int64) & M32
 
 

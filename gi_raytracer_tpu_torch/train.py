@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from . import telemetry
 from .render.integrator import Renderer, radiance_wave
 from .render.photon import PhotonBatch, build_photon_map
 
@@ -55,14 +56,15 @@ class TrainStep:
         return lit, dataclasses.replace(self.photon_map, col=p["pcol"])
 
     def __call__(self, plain: bool = False):
-        p = {k: v.detach().clone().requires_grad_(True)
-             for k, v in self.params().items()}
-        scene, pm = self.build(p)
-        c, _ = radiance_wave(scene, self.cfg, *self.inputs, 0, pm,
-                             lane_ids=self.lane, plain=plain)
-        loss = torch.mean((c - self.target) ** 2)
-        return (loss.detach(),) + torch.autograd.grad(
-            loss, (p["pcol"], p["lcol"]))
+        with telemetry.span("train.step"):
+            p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in self.params().items()}
+            scene, pm = self.build(p)
+            c, _ = radiance_wave(scene, self.cfg, *self.inputs, 0, pm,
+                                 lane_ids=self.lane, plain=plain)
+            loss = torch.mean((c - self.target) ** 2)
+            return (loss.detach(),) + torch.autograd.grad(
+                loss, (p["pcol"], p["lcol"]))
 
     def sgd(self, lr: float = 0.05) -> tuple:
         """(loss, params after one SGD step): the single-process twin of

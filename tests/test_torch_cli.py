@@ -144,9 +144,28 @@ def test_cli_render_profile_writes_a_trace(scene_dir, capsys):
     assert len(traces) == 1
     assert f"[profile] torch.profiler trace written to {traces[0]}" in log
     events = json.loads(traces[0].read_text())["traceEvents"]
-    assert any(e.get("name", "").startswith("aten::") for e in events)
+    ops = [e for e in events if e.get("name", "").startswith("aten::")]
+    assert ops
     assert profiled.read_bytes() == plain.read_bytes()
     assert _rays(log) == _rays(plain_log)
+    # the program's spans, on the trace's clock: the frame holds the ops
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    (frame,) = [e for e in spans if e["name"] == "frame"]
+    waves = [e for e in spans if e["name"] == "wave"]
+    assert len(waves) >= 2          # the scene samples 2 to 4 a pixel
+    assert frame["ts"] <= min(w["ts"] for w in waves)
+    inside = [e for e in ops if frame["ts"] <= e["ts"]
+              and e["ts"] + e["dur"] <= frame["ts"] + frame["dur"]]
+    assert len(inside) > len(ops) // 2
+    # the table: each span's count and self time; the CPU has no device
+    # events to put idle gaps down to
+    rows = dict(re.findall(r"\[profile\] (\S+) +(\d+) +[\d.]+ +[\d.]+\n",
+                           log))
+    assert rows["frame"] == "1" and rows["wave"] == str(len(waves))
+    assert rows["wave.trace"] == rows["wave"]
+    # an adaptive frame's wave sets up twice: its active blocks, its inputs
+    assert rows["wave.inputs"] == str(2 * len(waves))
+    assert "[profile] device idle by span: no device events" in log
 
 
 def _option_strings(main, name, capsys):
@@ -171,3 +190,45 @@ def test_cli_takes_the_jax_flags_plus_device(name, monkeypatch, capsys):
     want = _option_strings(jax_cli.main, name, capsys)
     assert {"-o", "--output", "--resume", "--profile", "-v"} <= want
     assert _option_strings(cli.main, name, capsys) == want | {"--device"}
+
+
+_LAYOUTS = {
+    # the events closed just before "traceName", the base time at the head
+    "profiler": '{\n  "baseTimeNanoseconds": 1000,\n  "traceEvents": [\n'
+                '  {"ph": "X", "name": "k", "ts": 1.0, "dur": 2}\n'
+                '  ],"traceName": "a],b" }',
+    # the logger's lists between them, the base time at the tail
+    "kineto": '{\n  "traceEvents": [\n  {"ph": "X", "name": "k", "ts": 1.0,'
+              ' "dur": 2, "args": {"grid": [1, 1, 1]}}\n  ],\n  "WARNING": '
+              '["a}],b"],\n  "traceName": "t.json",\n  "baseTimeNanoseconds":'
+              ' 1000\n}',
+    # no event to close
+    "other": json.dumps({"traceEvents": [], "baseTimeNanoseconds": 1000,
+                         "traceName": "x"}),
+}
+
+
+@pytest.mark.parametrize("layout", ["profiler", "kineto", "other"])
+def test_profile_adds_spans_to_a_trace(tmp_path, monkeypatch, layout):
+    """``--profile`` puts the spans in the profiler's trace on its clock,
+    in place before the bracket that closes its events (the file is not
+    read whole), in the layouts torch's versions write; a trace with no
+    such close is left as it was, and the call says so."""
+    from gi_raytracer_tpu_torch import telemetry
+    spans = [telemetry.Span("frame", 5_000, 9_000, 0, None, 0, {})]
+    path = tmp_path / "t.pt.trace.json"
+    text = _LAYOUTS[layout]
+    path.write_text(text)
+    monkeypatch.setattr(json, "load", None)     # never read whole
+    added = cli._add_spans(str(path), spans)
+    monkeypatch.undo()
+    assert added == (layout != "other")
+    trace = json.loads(path.read_text())
+    if not added:
+        assert path.read_text() == text
+        return
+    frame = [e for e in trace["traceEvents"] if e.get("name") == "frame"]
+    assert len(frame) == 1 and frame[0]["ts"] == 4.0
+    assert len(trace["traceEvents"]) == 3
+    assert {k: v for k, v in trace.items() if k != "traceEvents"} == {
+        k: v for k, v in json.loads(text).items() if k != "traceEvents"}

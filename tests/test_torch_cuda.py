@@ -943,3 +943,171 @@ def test_fog_march_matches_its_step_loop(dev):
     assert 1000 < int(want[0].sum()) < ro.shape[0] // 2
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+# ---- the program's spans and counters on the card (telemetry) -----------
+
+def _device_events(prof):
+    """(name, start_ns, end_ns) of the profiler's device events."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()]
+
+
+def test_telemetry_shares_the_profilers_clock(dev):
+    """Under the benchmark's profiler (the device alone), a kernel that a
+    span enqueues and waits for runs inside that span, and a span closed
+    before the launch ends before the kernel starts: the spans' stamps
+    and the device events' are on one clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    telemetry.reset()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with telemetry.span("before"):
+            pass
+        with telemetry.span("sleep"):
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize(dev)
+    spans = {sp.name: sp for sp in telemetry.records()}
+    (name, start, end), = [e for e in _device_events(prof)]
+    assert spans["sleep"].start_ns <= start < end <= spans["sleep"].end_ns, (
+        name, spans["sleep"], start, end)
+    assert spans["before"].end_ns <= start
+    telemetry.reset()
+
+
+@pytest.fixture(scope="module")
+def chunk_map(dev, scene):
+    """A 131,072-slot photon batch (one chunk) of the Cornell box and its
+    map."""
+    cfg = RenderConfig(photons=131_072, ray_chunk=131_072, seed=11)
+    batch = trace_photons(scene, cfg)
+    return batch, build_photon_map(batch, scene.world_min.cpu().numpy(),
+                                   scene.world_max.cpu().numpy())
+
+
+def _sync_jobs(dev, scene, chunk_map):
+    """The jobs of every cell's kind, small: a frame of the render_map
+    traffic (K1, K3) and of the terrain's (staged wave, K4) at 64x64, a
+    photon chunk and its map, a train step at 32x32."""
+    from gi_raytracer_tpu_torch.train import TrainStep
+
+    batch, pm = chunk_map
+    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
+    base = dict(adaptive=False, knn_k=32, seed=5)
+    r_map = Renderer(scene, cam, RenderConfig(min_samples=8, max_samples=8,
+                                              max_depth=8, **base),
+                     64, 64, photon_map=pm)
+    ter = terrain_scene(SceneBuilder, 120).build(device=dev)
+    r_ter = Renderer(ter, Camera(pos=(0.0, 18.0, -30.0),
+                                 look_at=(0.0, 0.0, 0.0)),
+                     RenderConfig(min_samples=2, max_samples=2, max_depth=3,
+                                  **base), 64, 64)
+    pcfg = RenderConfig(photons=131_072, ray_chunk=131_072, seed=12)
+    wmin = scene.world_min.cpu().numpy()
+    wmax = scene.world_max.cpu().numpy()
+    step = TrainStep(scene, cam, RenderConfig(seed=5), batch, size=32,
+                     depth=8, photons=50_000)
+    return {"render_map": r_map.render, "terrain": r_ter.render,
+            "photon_chunk": lambda: build_photon_map(
+                trace_photons(scene, pcfg), wmin, wmax),
+            "train_step": step}
+
+
+def test_telemetry_marks_every_sync(dev, scene, chunk_map):
+    """With recording on (a profiler of the device) and torch's sync debug
+    mode at "warn", each job's synchronizing operations are exactly its
+    ``sync`` spans: each warning is raised while a ``sync`` span is the
+    innermost one open, and there is one warning a span."""
+    import collections
+    import os
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    for name, job in _sync_jobs(dev, scene, chunk_map).items():
+        job()                   # tables and caches, as set-up builds them
+        torch.cuda.synchronize(dev)
+        telemetry.reset()
+        caught = []             # (where, the innermost open span's name)
+
+        def note(message, category, filename, lineno, file=None,
+                 line=None):
+            if "called a synchronizing CUDA operation" in str(message):
+                top = telemetry._rec.open[-1:]
+                caught.append((f"{os.path.basename(filename)}:{lineno}",
+                               top[0].name if top else None))
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = note
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    job()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize(dev)
+        unmarked = sorted({w for w, top in caught if top != "sync"})
+        assert not unmarked, (name, unmarked)
+        spans = collections.Counter(sp.attrs["site"]
+                                    for sp in telemetry.records()
+                                    if sp.name == "sync")
+        assert len(caught) == sum(spans.values()) > 0, (
+            name, sorted(collections.Counter(w for w, _ in caught).items()),
+            sorted(spans.items()))
+    telemetry.reset()
+
+
+def test_telemetry_k3_totals_sum_the_calls_counts(dev, scene, chunk_map):
+    """While recording, K3 adds each launch's queued and taken counts to
+    the totals: over a render with the map they equal the sum of
+    ``knn_counts`` read after each call, and the calls launch K3's two
+    kernels and nothing more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    from gi_raytracer_tpu_torch.render import photon_knn
+
+    _, pm = chunk_map
+    r = Renderer(scene, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
+                 RenderConfig(adaptive=False, min_samples=2, max_samples=2,
+                              max_depth=8, knn_k=32, seed=5),
+                 128, 128, photon_map=pm)
+    r.render()
+    orig, sums = photon_knn._knn_cuda, [0, 0, 0]
+
+    def counted(*a):
+        out = orig(*a)
+        q, t = knn_counts(pm)
+        sums[0] += q
+        sums[1] += t
+        sums[2] += 1
+        return out
+
+    photon_knn._knn_cuda = counted
+    try:
+        torch.cuda.synchronize(dev)
+        telemetry.reset()
+        before = _cuda.launches["knn"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r.render()
+            torch.cuda.synchronize(dev)
+    finally:
+        photon_knn._knn_cuda = orig
+    assert telemetry.k3_counts() == (sums[0], sums[1])
+    assert sums[0] > 0 and sums[2] > 0
+    assert _cuda.launches["knn"] - before == sums[2]
+    knn = [n for n, _, _ in _device_events(prof) if "gi_knn" in n]
+    assert len(knn) == 2 * sums[2]
+    calls = [sp for sp in telemetry.records() if sp.name == "knn"]
+    assert len(calls) == sums[2]
+    # off the profiler the kernel adds nothing to them
+    r.render()
+    torch.cuda.synchronize(dev)
+    assert telemetry.k3_counts() == (sums[0], sums[1])
+    telemetry.reset()
