@@ -14,7 +14,7 @@ card at the paths' shapes:
   box (2,198 triangles), a 750,000-slot photon pass, the photon map, and
   512x512 renders at a fixed 8 samples per pixel, depth 8, kNN k = 32,
   with the map and without it, CORNELL_RENDERS of each in turns (K1
-  bounce megakernel, K2 dense trace, K3 kNN);
+  bounce megakernel, the photon pass's round kernel, K3 kNN);
 * phase A, big scene: the terrain of ``scripts/bench_big_scenes.py`` at
   its three sizes (250,632, 500,000 and 999,698 triangles), each rendered
   at 256x256, 2 spp, depth 3, no photons (the staged wave on K4, the
@@ -71,7 +71,9 @@ with and without the map), to the same render with block compaction off:
 its waves then carry the lane ids of the blocks still active, with gaps.
 
 K2 and K4 (the two launches of ``csrc/walk.cuh``) are also timed on the
-traces of one round of their photon passes, and every time of K2, K4 and
+traces of one staged round of their photon passes, the Cornell box's
+round kernel (the walk under its photon-round policy) on round 0 of one
+chunk (CUDA events), and every time of K2, K4 and
 K1 comes with the ray-triangle tests the walks made and the bound from
 them.  K1 is held against its plain version on one 512x512 wave (about
 four lanes a resident thread, so its lane queue refills) of the Cornell
@@ -1266,6 +1268,7 @@ def main(argv) -> int:
         PhotonBatch, build_photon_map, sample_photons_backend, trace_photons)
     from gi_raytracer_tpu_torch.render.photon_knn import (
         knn_info, sample_photons_plain, sample_photons_tiled)
+    from gi_raytracer_tpu_torch.sampling.halton import HaltonSampler
     from gi_raytracer_tpu_torch.scene import terrain
     from gi_raytracer_tpu_torch.scene.cornell import (
         ANALYTIC_TRIS, GLASS_SUBDIVS, GLASS_TRIS)
@@ -1322,11 +1325,15 @@ def main(argv) -> int:
                        + n_boxes * 32)
         return ms, by, ray_visits
 
+    class Staged(photon_mod.ThreefryUniform):
+        """The default source's draws under another type, which the round
+        kernel leaves to the staged round."""
+
     def photon_round(scn, c):
         """The traces of one round of the photon pass of ``scn``: one
         chunk of ``c.ray_chunk`` slots, one round (the emission trace and
         ``c.photon_depth`` continuation traces), as (ro, rd, active, ray
-        id, salt) per trace."""
+        id, salt) per trace: the staged round's."""
         calls = []
         orig = photon_mod.trace_closest
 
@@ -1339,31 +1346,110 @@ def main(argv) -> int:
         photon_mod.trace_closest = record
         try:
             trace_photons(scn, c.replace(photons=c.ray_chunk,
-                                         photon_retries=1))
+                                         photon_retries=1),
+                          uniform=Staged(c.seed, scn.device))
         finally:
             photon_mod.trace_closest = orig
         return calls
 
     def walk_round(name, query, scn, boxes, calls, eps):
         """Time the walk ``query`` (K2 or K4) on each trace of a photon
-        round; logs the ms, bound ms and tests summed over the round."""
+        round; logs the ms, bound ms and tests summed over the round and
+        returns the bound ms with what binds each trace."""
         feat_, acc_ = trace_tables(scn)
         ms = b_ms = 0.0
         tests_all = 0
+        bys = set()
         for ro, rd, act, rid, salt in calls:
             R = ro.shape[0]
             a = (feat_, acc_, *boxes, ro, rd, rays_for(R)[0], act, rid, salt,
                  eps, False, scn.all_opaque)
             _, _, v, n_t = query(*a, return_counts=True)
             ms += cuda_ms(lambda: query(*a), 3)
-            b, _, _ = walk_bound(act, v, n_t, boxes[0].shape[1],
-                                 feat_.shape[0], sum(b_.shape[1]
-                                                     for b_ in boxes))
+            b, by, _ = walk_bound(act, v, n_t, boxes[0].shape[1],
+                                  feat_.shape[0], sum(b_.shape[1]
+                                                      for b_ in boxes))
             b_ms += b
+            bys.add(by)
             tests_all += int(n_t.long().sum())
         log(f"{name}: {len(calls)} traces of {calls[0][0].shape[0]} slots, "
             f"active rays {[int(c_[2].sum()) for c_ in calls]}; ms {ms:.3f} "
             f"tests made {tests_all} bound ms {b_ms:.4f}")
+        return b_ms, "/".join(sorted(bys))
+
+    def round_kernel_ms(scn, c, walks):
+        """The round kernel's row: CUDA-event ms on round 0 of one chunk of
+        ``c.ray_chunk`` slots (every slot live; the chunk's arrays zeroed
+        before each timed launch), the staged round's wall ms on the same
+        round, and the largest difference of their batches, which must be
+        equal: the timed launches' against the staged round 0 of the same
+        slots, and ``trace_photons``'s one round on each route.  ``walks``
+        (bound ms, what binds) is the floor of the staged round's six K2
+        traces (``walk_round``), which the kernel walks too: its bound
+        leaves the shading, draws and store out.  Logs the whole chunk's
+        pass too."""
+        from gi_raytracer_tpu_torch.ops import cuda_photon
+        n = c.ray_chunk
+        light = photon_mod._light_row(scn, 0, n)
+        keys = photon_mod.ThreefryUniform(c.seed, scn.device).round_keys(
+            0, 0, c.photon_retries, c.photon_depth)
+        pos = torch.zeros((n, 3), device=dev)
+        dirs, col = torch.zeros_like(pos), torch.zeros_like(pos)
+        stored = torch.zeros(n, dtype=torch.bool, device=dev)
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        launch = cuda_photon.round_launcher(
+            scn, light, keys, pos, dirs, col, stored, count, 0, c.epsilon,
+            c.shadow_bias, HaltonSampler().arith_plan(3))
+        info = cuda_photon.round_info(scn)
+        ms = []
+        for rep in range(6):
+            for t in (pos, dirs, col, stored, count):
+                t.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(0, photon_mod._round_salt(0, 0))
+            end.record()
+            torch.cuda.synchronize()
+            if rep:             # the first launch warms up
+                ms.append(start.elapsed_time(end))
+        slot = torch.arange(n, device=dev)
+        want = photon_mod._emit_attempts(
+            scn, c, HaltonSampler(), 0, (slot * c.photon_retries) & 0xFFFFFFFF,
+            photon_mod.ThreefryUniform(c.seed, scn.device), 0, 0,
+            torch.ones(n, dtype=torch.bool, device=dev), slot, n)
+        require(torch.equal(stored, want.stored), "the timed round's stored "
+                "mask equals the staged round 0's")
+        err = max(float((got - getattr(want, f)).abs().max())
+                  for got, f in ((pos, "pos"), (dirs, "dir"), (col, "col")))
+        chunk_s = timed(lambda: photon_mod.trace_photons(
+            scn, c.replace(photons=n)))[1]
+        one = c.replace(photons=n, photon_retries=1)
+        require(photon_mod.round_kernel_why_not(
+            scn, one, None, Staged(c.seed, scn.device), False) == [
+                "emission uniforms from Staged, not ThreefryUniform"],
+                "Staged takes the staged round")
+        fast = photon_mod.trace_photons(scn, one)
+        staged, plain_s = timed(lambda: photon_mod.trace_photons(
+            scn, one, uniform=Staged(c.seed, scn.device)))
+        require(torch.equal(fast.stored, staged.stored),
+                "the round kernel's stored mask equals the staged round's")
+        err = max([err] + [float((getattr(fast, f) - getattr(staged, f))
+                                 .abs().max()) for f in ("pos", "dir", "col")])
+        log(f"round kernel {json.dumps(info)}: round 0 of {n} slots "
+            f"{sum(ms) / len(ms):.3f} ms (CUDA events, {len(ms)} launches), "
+            f"staged round {plain_s * 1e3:.1f} ms, largest difference "
+            f"{err:.3e}; the chunk's whole pass {chunk_s:.4f} s")
+        require(err == 0, ("the round kernel's photons equal the staged "
+                           "round's", err))
+        require(info["blocks_per_sm"] >= 1 and info["local_bytes"] <= 64,
+                info)
+        return dict(name="photon_round", route="cuda",
+                    source="gi_raytracer_tpu_torch/csrc/photon.cu",
+                    replaces=None, max_abs_err=err, ms=sum(ms) / len(ms),
+                    plain_ms=plain_s * 1e3, bound_ms=walks[0],
+                    bound_by=f"{walks[1]} of the walks alone",
+                    library_ms=None)
 
     def walk_resources(kernel, n_groups):
         info = ci.walk_info(kernel, n_groups)
@@ -1374,7 +1460,8 @@ def main(argv) -> int:
     with Phase("main path"):
         pm, cornell_batch = drive(
             "Cornell main path", lambda: cornell_path(scene, cfg, cam),
-            need=("intersect", "megakernel", "knn"), absent=("stream",))
+            need=("photon_round", "megakernel", "knn"),
+            absent=("stream", "intersect"))
     profile("Cornell render with the map",
             Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm).render)
     # the profiles trace one chunk of a pass (its busy share is the
@@ -1465,8 +1552,9 @@ def main(argv) -> int:
                                    cbox.shape[1])
         log(f"K2 closest-hit ms {ms:.3f} plain ms {plain_ms:.3f} brute "
             f"force ms {brute_ms:.3f} bound ms {b_ms:.4f} ({b_by})")
-        walk_round("K2 Cornell photon round", ci.prim_query, scene, (cbox,),
-                   photon_round(scene, cfg), cfg.epsilon)
+        walks = walk_round("K2 Cornell photon round", ci.prim_query, scene,
+                           (cbox,), photon_round(scene, cfg), cfg.epsilon)
+        rows["photon_round"] = round_kernel_ms(scene, cfg, walks)
         rows["intersect"] = dict(
             name="intersect", route="cuda",
             source="gi_raytracer_tpu_torch/csrc/intersect.cu",
@@ -2140,8 +2228,8 @@ def main(argv) -> int:
                     "uninterrupted one")
 
         # the same render under --profile: the same PNG, and a trace that
-        # holds every K2 and K3 launch the counters saw in the profiled
-        # region (the photon pass before it launches K2 untraced)
+        # holds every K2, round kernel and K3 launch the counters saw in
+        # the profiled region (the photon pass and the render)
         profiled = os.path.join(tmp, "profiled.png")
         trace_dir = os.path.join(tmp, "trace")
         region = {}
@@ -2165,7 +2253,8 @@ def main(argv) -> int:
                       absent=("megakernel", "stream"))
             finally:
                 cli._profiled = profiled_region
-            counted = {"gi_walk_kernel": region["intersect"],
+            counted = {"gi_walk_kernel": region["intersect"]
+                       + region["photon_round"],
                        "gi_knn_kernel": region["knn"],
                        "gi_knn_focal_kernel": region["knn"]}
             with open(profiled, "rb") as f, open(png, "rb") as g:

@@ -35,15 +35,17 @@ npz with a meta record of resolution, seed, sampling config and the scene
 file's hash); ``--resume`` continues from it and refuses one whose record
 differs.  ``--preview`` writes the tonemapped image after every wave.
 
-``render --profile DIR`` wraps the render and its tonemap (not the scene
-build or the photon pass) in ``torch.profiler`` and writes the trace to
-``DIR/<worker>.<ns>.pt.trace.json``, which TensorBoard's profiler plugin,
-Perfetto and ``chrome://tracing`` read: on the card its kernels, copies
-and fills (the device alone), on the CPU the host's ops, and a row of the
-program's spans (frame, waves, syncs, K3 calls: ``telemetry``) on the
-same clock.  It prints each span's count and self time and, on the card,
-the device's idle seconds by the span open when each gap began.  It acts
-on the single-process render only (not with ``--devices`` or
+``render --profile DIR`` wraps the photon pass, the render and its
+tonemap (not the scene build) in ``torch.profiler`` and writes the trace
+to ``DIR/<worker>.<ns>.pt.trace.json``, which TensorBoard's profiler
+plugin, Perfetto and ``chrome://tracing`` read: on the card its kernels,
+copies and fills (the device alone), on the CPU the host's ops, and a row
+of the program's spans (photon pass, rounds, grid, frame, waves, syncs,
+K3 calls: ``telemetry``) on the same clock.  It prints each span's count
+and self time (the photon pass's rounds by route: ``photons.round[k2]``
+for the round kernel, ``photons.round[staged]``) and, on the card, the
+device's idle seconds by the span open when each gap began.  It acts on
+the single-process render only (not with ``--devices`` or
 ``--distributed``), as in the JAX package, and leaves the image, the ray
 count and the checkpoint as they are without it.
 """
@@ -245,8 +247,7 @@ def cmd_render(args):
     if args.devices > 1 or args.distributed:
         return _render_sharded(args)
     ls, cfg, cam = _build(args)
-    pm = _photon_map(ls, cfg) if not args.no_photons else None
-    r = Renderer(ls.scene, cam, cfg, args.width, args.height, photon_map=pm)
+    dev = ls.scene.device
 
     with open(args.scene, "rb") as f:
         scene_hash = hashlib.sha1(f.read()).hexdigest()[:16]
@@ -258,8 +259,7 @@ def cmd_render(args):
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
         raw = load_checkpoint(args.checkpoint, expect_meta=meta)
         raw.pop("meta", None)
-        state = {k: torch.as_tensor(v, device=r.device)
-                 for k, v in raw.items()}
+        state = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
         state["wave"] = int(raw["wave"])
         print(f"[resume] wave {state['wave']} from {args.checkpoint}")
 
@@ -275,10 +275,13 @@ def cmd_render(args):
             print(f"[wave {s}] active {int(st['active'].sum())}")
 
     hook = on_wave if (args.preview or args.checkpoint) else None
-    region = (_profiled(args.profile, r.device) if args.profile
+    region = (_profiled(args.profile, dev) if args.profile
               else contextlib.nullcontext())
-    t0 = time.time()
     with region:
+        pm = _photon_map(ls, cfg) if not args.no_photons else None
+        r = Renderer(ls.scene, cam, cfg, args.width, args.height,
+                     photon_map=pm)
+        t0 = time.time()
         img, st = r.render(verbose=args.verbose, on_wave=hook, state=state,
                            return_state=True)
         out = r.tonemap(img)

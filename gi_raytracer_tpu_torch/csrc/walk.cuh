@@ -41,6 +41,12 @@
 // up to and including the chunk's first accepted row.  Neither depends on
 // how the pairs are spread over the warps.  The plain version is
 // cuda_intersect.walk_plain.
+//
+// gi_walk_tile is the walk of one tile.  Two templates launch it, both
+// named gi_walk_kernel: gi_walk_kernel<GC>, K2's and K4's query of the
+// caller's rays (intersect.cu, stream.cu), and gi_walk_kernel<GC, P>, which
+// runs a policy P of its own around it (photon.cu: the photon pass's retry
+// round, which walks its tile once a step of the round).
 
 #pragma once
 
@@ -238,44 +244,32 @@ __device__ __forceinline__ int gi_test_pair(const GiWalkSmem& s, int r,
   return made;
 }
 
-// The walk.  GC chunks per group: 1 for K2 (a group is a chunk; gbox is
-// the chunk boxes), 16 for K4 (superchunk boxes in gbox, chunk boxes in
-// cbox).  n_chunks = t_pad / GI_CHUNK.
+// The walk of one tile.  Every thread of the block calls it, with its own
+// ray: `act` false for a thread without a query (past the rays, or
+// inactive), whose ray then takes no part.  GC chunks per group: 1 for K2
+// (a group is a chunk; gbox is the chunk boxes), 16 for K4 (superchunk
+// boxes in gbox, chunk boxes in cbox).  n_chunks = t_pad / GI_CHUNK.
+// Returns the thread's key (GI_NO_HIT: none); nv = the groups the tile
+// visited, nt += the tests of the pairs this thread tested as lane 0 of its
+// warp.  A block may call it again once every thread has returned (a
+// barrier): the tile's shared memory is then written anew.
 template <int GC>
-__global__ void __launch_bounds__(GI_TILE, 4)
-gi_walk_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
-               const float* __restrict__ tlim,
-               const uint8_t* __restrict__ active,
-               const int32_t* __restrict__ rid,
-               const float4* __restrict__ feat,
-               const float* __restrict__ accept,
-               const float* __restrict__ gbox, const float* __restrict__ cbox,
-               int n_rays, int n_groups, int n_chunks, uint32_t salt,
-               float eps, int any_hit_i, int all_opaque_i,
-               float* __restrict__ out_t, int32_t* __restrict__ out_prim,
-               int32_t* __restrict__ visits, int32_t* __restrict__ tests) {
-  extern __shared__ __align__(16) unsigned char gi_smem[];
+__device__ __forceinline__ unsigned long long gi_walk_tile(
+    const GiWalkSmem& s, const float4* __restrict__ feat,
+    const float* __restrict__ accept, const float* __restrict__ gbox,
+    const float* __restrict__ cbox, int n_groups, int n_chunks, bool act,
+    float ox, float oy, float oz, float dx, float dy, float dz, float t_eff,
+    uint32_t ray_id, uint32_t salt, float eps, bool any_hit, bool all_opaque,
+    int& nv, int& nt) {
   __shared__ int s_wcnt[GI_WARPS][GC];  // per warp, then its offset
   __shared__ int s_cofs[GC + 1];        // pair list offset per chunk
   __shared__ int s_uidx[GC];            // chunk -> place among needed ones
   __shared__ int s_ulist[GC];           // needed chunks, ascending
-  __shared__ int s_nu, s_n, s_tests;
+  __shared__ int s_nu, s_n;
   __shared__ float s_wmax[GI_WARPS];
 
   constexpr int ST = gi_stage(GC);
-  const GiWalkSmem s = gi_walk_smem(gi_smem, ST, n_groups);
-  const bool any_hit = any_hit_i != 0, all_opaque = all_opaque_i != 0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = blockIdx.x * GI_TILE + tid;
-  const bool act = i < n_rays && active[i];
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  uint32_t ray_id = 0u;
-  if (i < n_rays) {
-    ox = ro[3 * i]; oy = ro[3 * i + 1]; oz = ro[3 * i + 2];
-    dx = rd[3 * i]; dy = rd[3 * i + 1]; dz = rd[3 * i + 2];
-    ray_id = (uint32_t)rid[i];
-  }
-  const float t_eff = act ? tlim[i] : -GI_BIG;
   const float ix = gi_safe_inv(dx), iy = gi_safe_inv(dy), iz = gi_safe_inv(dz);
   const uint32_t big_bits = __float_as_uint(GI_BIG);
   s.ray[2 * tid] = make_float4(ox, oy, oz, t_eff);
@@ -287,7 +281,7 @@ gi_walk_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   // batches, so every warp reads them from shared memory; a tile without
   // a live ray skips the cull.
   for (int j = tid; j < n_groups; j += GI_TILE) s.ent[j] = big_bits;
-  if (tid == 0) s_n = 0, s_tests = 0;
+  if (tid == 0) s_n = 0;
   const bool tile_live = __syncthreads_or(act);
   const bool warp_live = __any_sync(0xffffffffu, act);
   float* s_box = reinterpret_cast<float*>(s.rows) + GI_MAX_GROUPS;
@@ -348,7 +342,7 @@ gi_walk_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     gi_cp_commit();
   }
   float cap = GI_BIG;
-  int nv = 0, nt = 0;
+  nv = 0;
   for (int v = 0;; ++v) {
     // the cap: every key is final here (the last barrier of the visit)
     const unsigned long long key = s.key[tid];
@@ -483,9 +477,46 @@ gi_walk_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     }
   }
   gi_cp_wait<0>();  // a prefetch the walk did not use
+  return s.key[tid];
+}
 
+// K2 and K4: the walk kernel's query, one ray a thread, read from the
+// caller's arrays, and its closest or any hit written back with the tile's
+// counts (visits and tests).
+template <int GC>
+__global__ void __launch_bounds__(GI_TILE, 4)
+gi_walk_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+               const float* __restrict__ tlim,
+               const uint8_t* __restrict__ active,
+               const int32_t* __restrict__ rid,
+               const float4* __restrict__ feat,
+               const float* __restrict__ accept,
+               const float* __restrict__ gbox, const float* __restrict__ cbox,
+               int n_rays, int n_groups, int n_chunks, uint32_t salt,
+               float eps, int any_hit_i, int all_opaque_i,
+               float* __restrict__ out_t, int32_t* __restrict__ out_prim,
+               int32_t* __restrict__ visits, int32_t* __restrict__ tests) {
+  extern __shared__ __align__(16) unsigned char gi_smem[];
+  __shared__ int s_tests;
+  const GiWalkSmem s = gi_walk_smem(gi_smem, gi_stage(GC), n_groups);
+  const bool any_hit = any_hit_i != 0, all_opaque = all_opaque_i != 0;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int i = blockIdx.x * GI_TILE + tid;
+  const bool act = i < n_rays && active[i];
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  uint32_t ray_id = 0u;
   if (i < n_rays) {
-    const unsigned long long key = s.key[tid];
+    ox = ro[3 * i]; oy = ro[3 * i + 1]; oz = ro[3 * i + 2];
+    dx = rd[3 * i]; dy = rd[3 * i + 1]; dz = rd[3 * i + 2];
+    ray_id = (uint32_t)rid[i];
+  }
+  const float t_eff = act ? tlim[i] : -GI_BIG;
+  if (tid == 0) s_tests = 0;  // the walk's barriers come before the adds
+  int nv = 0, nt = 0;
+  const unsigned long long key = gi_walk_tile<GC>(
+      s, feat, accept, gbox, cbox, n_groups, n_chunks, act, ox, oy, oz, dx,
+      dy, dz, t_eff, ray_id, salt, eps, any_hit, all_opaque, nv, nt);
+  if (i < n_rays) {
     float t = GI_BIG;
     int32_t p = -1;
     if (key != GI_NO_HIT) {
@@ -505,7 +536,44 @@ gi_walk_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   }
 }
 
-// launch one walk on `stream`; returns cudaGetLastError()
+// The walk kernel under a policy P of its own: a block of GI_TILE threads
+// owns a tile and runs P::tile<GC> (P::Args a, the walk's shared memory),
+// which calls gi_walk_tile as it needs; __launch_bounds__ with
+// P::kMinBlocks blocks an SM.
+template <int GC, class P>
+__global__ void __launch_bounds__(GI_TILE, P::kMinBlocks)
+gi_walk_kernel(const typename P::Args a) {
+  extern __shared__ __align__(16) unsigned char gi_smem[];
+  P::template tile<GC>(a, gi_walk_smem(gi_smem, gi_stage(GC), a.n_groups));
+}
+
+// the query kernel's type, which picks it among the two templates
+using GiQueryKernel = void (*)(const float*, const float*, const float*,
+                               const uint8_t*, const int32_t*, const float4*,
+                               const float*, const float*, const float*, int,
+                               int, int, uint32_t, float, int, int, float*,
+                               int32_t*, int32_t*, int32_t*);
+
+// the entry of the walk kernel: the query (P void) or policy P's
+template <int GC, class P>
+struct GiWalkEntry {
+  static auto fn() { return gi_walk_kernel<GC, P>; }
+};
+template <int GC>
+struct GiWalkEntry<GC, void> {
+  static GiQueryKernel fn() { return gi_walk_kernel<GC>; }
+};
+
+// the walk kernel's dynamic shared memory at n_groups, set as its limit
+template <int GC, class P>
+inline cudaError_t gi_walk_smem_limit(int n_groups, size_t* smem) {
+  *smem = gi_walk_smem_bytes(GC, n_groups);
+  return cudaFuncSetAttribute(GiWalkEntry<GC, P>::fn(),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
+// launch the query walk on `stream`; returns cudaGetLastError()
 template <int GC>
 inline int gi_walk_launch(const float* ro, const float* rd, const float* tlim,
                           const uint8_t* active, const int32_t* rid,
@@ -517,10 +585,8 @@ inline int gi_walk_launch(const float* ro, const float* rd, const float* tlim,
                           int32_t* tests, cudaStream_t stream) {
   if (n_groups > GI_MAX_GROUPS || n_groups < 0 || n_chunks < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gi_walk_smem_bytes(GC, n_groups);
-  cudaError_t err = cudaFuncSetAttribute(
-      gi_walk_kernel<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  size_t smem;
+  cudaError_t err = gi_walk_smem_limit<GC, void>(n_groups, &smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (n_rays + GI_TILE - 1) / GI_TILE;
   gi_walk_kernel<GC><<<grid, GI_TILE, smem, stream>>>(
@@ -530,22 +596,33 @@ inline int gi_walk_launch(const float* ro, const float* rd, const float* tlim,
   return (int)cudaGetLastError();
 }
 
-// resources of the walk kernel at n_groups: out[0] resident blocks per SM,
-// out[1] registers per thread, out[2] local (spill) bytes per thread,
-// out[3] dynamic shared bytes per block, out[4] static shared bytes
-template <int GC>
+// launch policy P's walk kernel on `grid` tiles of a.n_groups groups;
+// returns cudaGetLastError()
+template <int GC, class P>
+inline int gi_walk_run(const typename P::Args& a, int grid,
+                       cudaStream_t stream) {
+  size_t smem;
+  cudaError_t err = gi_walk_smem_limit<GC, P>(a.n_groups, &smem);
+  if (err != cudaSuccess) return (int)err;
+  if (grid > 0) gi_walk_kernel<GC, P><<<grid, GI_TILE, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// resources of the walk kernel (the query, P void; or policy P's) at
+// n_groups: out[0] resident blocks per SM, out[1] registers per thread,
+// out[2] local (spill) bytes per thread, out[3] dynamic shared bytes per
+// block, out[4] static shared bytes
+template <int GC, class P = void>
 inline int gi_walk_info(int n_groups, int* out) {
-  const size_t smem = gi_walk_smem_bytes(GC, n_groups);
-  cudaError_t err = cudaFuncSetAttribute(
-      gi_walk_kernel<GC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  size_t smem;
+  cudaError_t err = gi_walk_smem_limit<GC, P>(n_groups, &smem);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, gi_walk_kernel<GC>, GI_TILE, smem);
+      &blocks, GiWalkEntry<GC, P>::fn(), GI_TILE, smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, gi_walk_kernel<GC>);
+  err = cudaFuncGetAttributes(&attr, GiWalkEntry<GC, P>::fn());
   if (err != cudaSuccess) return (int)err;
   out[0] = blocks;
   out[1] = attr.numRegs;

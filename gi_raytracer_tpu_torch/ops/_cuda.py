@@ -40,7 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
-KERNELS = ("intersect", "megakernel", "knn", "stream")
+KERNELS = ("intersect", "megakernel", "knn", "stream", "photon_round")
 
 _lib = None
 _VP, _F, _I, _U = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "gi_stream_launch": [_VP] * 9 + [_I, _I, _I, _U, _F, _I, _I]
     + [_VP] * 5,
     "gi_stream_info": [_I, _VP],
+    "gi_photon_round_launch": [_VP] * 3 + [_I, _I, _F] + [_VP] * 7
+    + [_I] * 5 + [_U, _U, _I, _F, _F, _VP, _VP],
+    "gi_photon_round_info": [_I, _VP],
 }
 
 

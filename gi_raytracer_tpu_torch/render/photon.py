@@ -16,6 +16,16 @@ estimate (counterpart of ``gi_raytracer_tpu.render.photon``).
   ``sample_photons`` is the JAX package's capped per-point estimator,
   which ``knn_backend="jnp"`` names (``sample_photons_backend``).
 
+A retry round runs one of two ways, chosen per pass from what the code
+observes (``round_kernel_why_not``): on the card, for a float32
+triangle-only scene within K2's rows, without image textures, drawn from
+the default sources and with no gradient, as one launch of the walk
+kernel's photon-round policy (``ops.cuda_photon.round_launcher``),
+which updates the chunk in place; everywhere else as the staged round
+(``_emit_attempts``): torch operations around six K2 trace calls, the plain
+version the kernel is held to.  Each ``photons.round`` span names its
+``route``: ``"k2"`` or ``"staged"``.
+
 Emission draws its direction and BSDF uniforms from a ``uniform(li, chunk,
 round, depth, shape, dtype)`` source.  The default, ``ThreefryUniform``,
 draws the JAX package's threefry streams along its key path, so the port's
@@ -38,7 +48,8 @@ import torch
 
 from .. import telemetry
 from ..config import RenderConfig
-from ..ops.intersect import trace_closest
+from ..ops import cuda_photon
+from ..ops.intersect import VMEM_TRI_CAP, trace_closest
 from ..sampling import rng
 from ..sampling.halton import HaltonSampler
 from .geom import normalize, random_unit_vec, sphere_cap_cos
@@ -93,14 +104,70 @@ class ThreefryUniform:
         self.key = rng.PRNGKey(seed)
         self.device = torch.device(device)
 
-    def __call__(self, li, chunk, rnd, depth, shape, dtype=torch.float32):
+    def key_of(self, li, chunk, rnd, depth) -> tuple:
+        """The key of a draw (depth -1: the emission direction)."""
         kr = rng.fold_in(rng.fold_in(self.key, chunk), rnd)
         if depth < 0:
-            k = rng.stream(kr, rng.Purpose.PHOTON_EMIT_X, li)
-        else:
-            k = rng.fold_in(rng.stream(kr, rng.Purpose.PHOTON_ALPHA, li),
-                            depth)
-        return rng.uniform(k, shape, dtype, self.device)
+            return rng.stream(kr, rng.Purpose.PHOTON_EMIT_X, li)
+        return rng.fold_in(rng.stream(kr, rng.Purpose.PHOTON_ALPHA, li),
+                           depth)
+
+    def __call__(self, li, chunk, rnd, depth, shape, dtype=torch.float32):
+        return rng.uniform(self.key_of(li, chunk, rnd, depth), shape, dtype,
+                           self.device)
+
+    def round_keys(self, li, chunk, rounds: int, depth: int) -> np.ndarray:
+        """(rounds, 1 + depth, 2) uint32: ``key_of(li, chunk, r, d)`` at
+        [r, d + 1] for d from -1 to depth - 1, the keys the round kernel
+        draws with, for every round of a chunk at once (the threefry blocks
+        on numpy arrays of the rounds)."""
+        def fold(key, data):
+            return rng.threefry2x32(key[0], key[1], 0, data & rng.M32)
+
+        kc = rng.fold_in(self.key, chunk)
+        kr = fold(kc, np.arange(rounds, dtype=np.int64))
+        emit = fold(fold(kr, rng.Purpose.PHOTON_EMIT_X), li)
+        alpha = fold(fold(kr, rng.Purpose.PHOTON_ALPHA), li)
+        keys = [emit] + [fold(alpha, d) for d in range(depth)]
+        return np.stack([np.stack(k, -1) for k in keys], 1).astype(np.uint32)
+
+
+def round_kernel_why_not(scene, cfg: RenderConfig, sampler, uniform,
+                         differentiable: bool) -> list:
+    """The reasons a photon pass's rounds cannot run as the round kernel
+    (empty: they do); ``sampler``/``uniform`` None stand for the
+    defaults."""
+    why = []
+    if scene.device.type != "cuda":
+        why.append(f"tensors on {scene.device.type}, not the card")
+    if scene.n_spheres or scene.n_cones:
+        why.append(f"analytic prims ({scene.n_spheres} spheres, "
+                   f"{scene.n_cones} cones)")
+    if scene.has_image_tex:
+        why.append("image textures")
+    if not 0 < scene.n_tris <= VMEM_TRI_CAP:
+        why.append(f"{scene.n_tris} triangles, not in K2's (0, "
+                   f"{VMEM_TRI_CAP}]")
+    dts = {scene.lights.pos.dtype, scene.tris.v0.dtype}
+    if cfg.dtype != "float32" or dts != {torch.float32}:
+        why.append(f"dtype {cfg.dtype} ({sorted(map(str, dts))})")
+    if differentiable:
+        why.append("differentiable: autograd must see the operations")
+    if uniform is not None and type(uniform) is not ThreefryUniform:
+        why.append(f"emission uniforms from {type(uniform).__name__}, not "
+                   f"ThreefryUniform")
+    if sampler is not None and type(sampler) is not HaltonSampler:
+        why.append(f"sampler {type(sampler).__name__}, not HaltonSampler")
+    if cfg.photon_depth > cuda_photon.MAX_DEPTH:
+        why.append(f"photon_depth {cfg.photon_depth} > "
+                   f"{cuda_photon.MAX_DEPTH}")
+    return why
+
+
+def _round_salt(li: int, rnd: int) -> int:
+    """The alpha-stream salt of round ``rnd``'s emission trace; chain step
+    d adds (d + 1) * 7919."""
+    return ((li + 1) * 40503 + rnd * 2654435761) & 0xFFFFFFFF
 
 
 def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
@@ -127,7 +194,7 @@ def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
     col = torch.broadcast_to((0.5 * langle / total_count) * lcol,
                              (R, 3)).to(dt)
 
-    salt0 = ((li + 1) * 40503 + rnd * 2654435761) & 0xFFFFFFFF
+    salt0 = _round_salt(li, rnd)
     hit = trace_closest(scene, pos, emit_dir, salt=salt0, eps=cfg.epsilon,
                         active=active, ray_id=slot_ids)
     attrs = hit_attributes_uv(scene, pos, emit_dir, hit.t, hit.prim,
@@ -169,22 +236,35 @@ def _emit_attempts(scene, cfg: RenderConfig, sampler: HaltonSampler, li: int,
 
 def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
                 n_slots: int, total_count: int,
-                differentiable: bool = False) -> PhotonBatch:
+                differentiable: bool = False, light=None) -> PhotonBatch:
     """First-success emission for slots [start, start+n_slots) of light
     ``li``: masked retry rounds until every slot stored or
     ``cfg.photon_retries`` rounds ran (``differentiable``: every round,
     with no early exit, as the JAX package's ``lax.scan``).  Each round
     traces every slot of the chunk (its span's ``lanes``); ``live``, the
     slots still unstored at its start, comes from the count that decides
-    the early exit (not taken when ``differentiable``)."""
+    the early exit (not taken when ``differentiable``).  With ``light``,
+    the light's constants (``_light_row``), each round is one launch of
+    the round kernel, which merges into the chunk in place and keeps its
+    stored count on the card; without, the staged round."""
     retries = max(cfg.photon_retries, 1)
     dev = scene.device
     dt = scene.lights.pos.dtype
-    slot = start + torch.arange(n_slots, dtype=torch.int64, device=dev)
     pos = torch.zeros((n_slots, 3), dtype=dt, device=dev)
     dirs = torch.zeros_like(pos)
     col = torch.zeros_like(pos)
     stored = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    if light is None:
+        route = "staged"
+        slot = start + torch.arange(n_slots, dtype=torch.int64, device=dev)
+    else:
+        route = "k2"
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        launch = cuda_photon.round_launcher(
+            scene, light, uniform.round_keys(li, chunk, retries,
+                                             cfg.photon_depth),
+            pos, dirs, col, stored, count, start, cfg.epsilon,
+            cfg.shadow_bias, sampler.arith_plan(3))    # Halton dim 1
     for rnd in range(retries):
         live = {}
         if not differentiable:
@@ -192,12 +272,15 @@ def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
             # casts the mask first); a round negates the mask once, not
             # twice, so it issues as many operations as before
             with telemetry.sync("photons.live"):
-                n_stored = int(stored.sum())
+                n_stored = int(stored.sum() if light is None else count)
             if n_stored == n_slots:
                 break
             live = {"live": n_slots - n_stored}
         with telemetry.span("photons.round", round=rnd, lanes=n_slots,
-                            **live):
+                            route=route, **live):
+            if light is not None:
+                launch(rnd, _round_salt(li, rnd))
+                continue
             h_idx = (slot * retries + rnd) & 0xFFFFFFFF
             unstored = ~stored
             wave = _emit_attempts(scene, cfg, sampler, li, h_idx, uniform,
@@ -208,6 +291,25 @@ def _emit_chunk(scene, cfg, sampler, uniform, chunk: int, start: int, li: int,
             col = torch.where(new[:, None], wave.col, col)
             stored = stored | new
     return PhotonBatch(pos, dirs, col, stored)
+
+
+def _light_row(scene, li: int, total_count: int) -> torch.Tensor:
+    """The round kernel's 11 constants of light ``li``: position, cone
+    axis, radius, cone fraction and each slot's emitted colour, computed
+    as ``_emit_attempts`` computes them."""
+    lt = scene.lights
+    langle = lt.angle[li]
+    return torch.cat([lt.pos[li], lt.dir[li], lt.rad[li:li + 1],
+                      lt.angle[li:li + 1],
+                      (0.5 * langle / total_count) * lt.col[li]]).contiguous()
+
+
+def _lights(scene, cfg, sampler, uniform, differentiable, count):
+    """Each light's round-kernel constants (``_light_row``), or Nones
+    where the rounds stay staged (``round_kernel_why_not``)."""
+    if round_kernel_why_not(scene, cfg, sampler, uniform, differentiable):
+        return [None] * scene.lights.count
+    return [_light_row(scene, li, count) for li in range(scene.lights.count)]
 
 
 def _no_photons(scene) -> PhotonBatch:
@@ -243,6 +345,7 @@ def _trace_photons(scene, cfg, sampler, count, uniform, differentiable):
     L = scene.lights.count
     if L == 0:
         return _no_photons(scene)
+    lights = _lights(scene, cfg, sampler, uniform, differentiable, count)
     per_chunk = min(max(cfg.ray_chunk, 1), count)
     parts = []
     for li in range(L):
@@ -250,7 +353,7 @@ def _trace_photons(scene, cfg, sampler, count, uniform, differentiable):
             n = min(per_chunk, count - start)
             parts.append(_emit_chunk(scene, cfg, sampler, uniform,
                                      start // per_chunk, start, li, n, count,
-                                     differentiable))
+                                     differentiable, lights[li]))
     return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
                          for f in PhotonBatch._fields))
 
@@ -271,6 +374,7 @@ def trace_photons_sharded(scene, cfg: RenderConfig, mesh, sampler=None,
     L = scene.lights.count
     if L == 0:
         return _no_photons(scene)
+    lights = _lights(scene, cfg, sampler, uniform, False, count)
     if count % mesh.size:
         raise ValueError(f"photon count {count} not divisible by "
                          f"{mesh.size}")
@@ -278,7 +382,7 @@ def trace_photons_sharded(scene, cfg: RenderConfig, mesh, sampler=None,
     parts = []
     for li in range(L):
         b = _emit_chunk(scene, cfg, sampler, uniform, mesh.rank,
-                        mesh.rank * per, li, per, count)
+                        mesh.rank * per, li, per, count, light=lights[li])
         parts.append(PhotonBatch(*(all_gather(mesh, f) for f in b)))
     return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
                          for f in PhotonBatch._fields))

@@ -166,15 +166,23 @@ class HaltonSampler:
                 div = div // chunk
         return acc.to(torch.float32) * np.float32(scale)
 
-    def _sample_arith(self, p: int, index: torch.Tensor,
-                      index_bits: int) -> torch.Tensor:
+    def arith_plan(self, p: int, index_bits: int = 32) -> tuple:
+        """(digit permutation, digits evaluated, digits past them, float32
+        scale) of base ``p``'s per-digit evaluation (``p`` at most
+        ``ARITH_MAX_PRIME``): the digits an index of ``index_bits`` bits
+        can set, and the count of the always-zero digits past them, whose
+        permuted values ``_sample_arith`` adds as one tail."""
         k, c, scale = self._meta[p]
         K = k * c
-        perm = self._dev("perm", p, self._perms[p], index.device)
         needed = 1
         while needed < K and p ** needed < (1 << index_bits):
             needed += 1
-        extra = K - needed
+        return self._perms[p], needed, K - needed, np.float32(scale)
+
+    def _sample_arith(self, p: int, index: torch.Tensor,
+                      index_bits: int) -> torch.Tensor:
+        _, needed, extra, scale = self.arith_plan(p, index_bits)
+        perm = self._dev("perm", p, self._perms[p], index.device)
         acc = torch.zeros_like(index)
         div = index
         for j in range(needed):
@@ -185,7 +193,7 @@ class HaltonSampler:
             shift = (p ** extra) & M32
             tail = (int(self._perms[p][0]) * ((p ** extra - 1) // (p - 1))) & M32
             acc = (mul32(acc, shift) + tail) & M32
-        return acc.to(torch.float32) * np.float32(scale)
+        return acc.to(torch.float32) * scale
 
     def sample(self, dim: int, index, index_bits: int = 32) -> torch.Tensor:
         if not (0 <= dim < MAX_QMC_DIMS):

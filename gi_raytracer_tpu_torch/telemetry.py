@@ -23,8 +23,9 @@ span open on the host when it began (:func:`idle_by_span`).
 Each record holds its name, start and end in ns, its id, its parent's id
 (None for a root) and its root's id (the frame, the pass, the step: the
 spans of one job share it), and the attributes it was given, host-known
-ints only.  Records are kept in memory: :func:`records` and
-:func:`reset`.
+ints only but a ``photons.round`` span's ``route`` (``"k2"``: the round
+kernel, an instance of K2's walk kernel; ``"staged"``).  Records are
+kept in memory: :func:`records` and :func:`reset`.
 
 K3's tier counts: while recording, the kNN kernel adds each launch's
 queued and taken counts to two 64-bit totals in pinned host memory
@@ -167,13 +168,20 @@ def self_ns(spans) -> dict:
     return out
 
 
+def label(sp) -> str:
+    """A span's row in the tables: its name, and its ``route`` in
+    brackets where it has one (``photons.round[k2]``)."""
+    route = sp.attrs.get("route")
+    return sp.name if route is None else f"{sp.name}[{route}]"
+
+
 def summary(spans) -> dict:
-    """{name: (count, total ns, self ns)} over ``spans``."""
+    """{label: (count, total ns, self ns)} over ``spans``."""
     own = self_ns(spans)
     out: dict = {}
     for sp in spans:
-        n, tot, slf = out.get(sp.name, (0, 0, 0))
-        out[sp.name] = (n + 1, tot + sp.ns, slf + own[sp.id])
+        n, tot, slf = out.get(label(sp), (0, 0, 0))
+        out[label(sp)] = (n + 1, tot + sp.ns, slf + own[sp.id])
     return out
 
 
@@ -203,10 +211,10 @@ def chrome_events(spans, base_ns: int, pid: int) -> list:
 
 
 def report(spans, events) -> list:
-    """Lines of two tables: each span name's count, total and self
-    seconds; and the device's idle seconds between ``events`` by the
-    span open on the host when each gap began, with their share of all
-    idle time."""
+    """Lines of two tables: each span label's (:func:`label`) count,
+    total and self seconds; and the device's idle seconds between
+    ``events`` by the span open on the host when each gap began, with
+    their share of all idle time."""
     lines = ["span                 count    total_s     self_s"]
     for name, (n, tot, own) in sorted(summary(spans).items(),
                                       key=lambda kv: -kv[1][2]):
@@ -254,7 +262,7 @@ def idle_by_span(device_events, spans=None) -> dict:
             open_.remove(sp)
         if j + 1 < len(marks) and marks[j + 1][0] == t:
             continue
-        name = open_[-1].name if open_ else NONE
+        name = label(open_[-1]) if open_ else NONE
         if name not in names:
             names.append(name)
         seg_t.append(t)

@@ -132,7 +132,16 @@ def _rays(log):
     return re.search(r"\[render\] .* — (\S+) rays traced", log).group(1)
 
 
-def test_cli_render_profile_writes_a_trace(scene_dir, capsys):
+def test_cli_render_profile_writes_a_trace(scene_dir, capsys, monkeypatch):
+    # the profile covers the photon pass too: 4 retry rounds, not 64, keep
+    # its trace of the CPU's ops small (both renders take the same pass)
+    build = cli._build
+
+    def few_rounds(args):
+        ls, cfg, cam = build(args)
+        return ls, cfg.replace(photon_retries=4), cam
+
+    monkeypatch.setattr(cli, "_build", few_rounds)
     plain, profiled = scene_dir / "plain.png", scene_dir / "profiled.png"
     _render(scene_dir, plain, "--photons", "2000")
     plain_log = capsys.readouterr().out
@@ -165,6 +174,12 @@ def test_cli_render_profile_writes_a_trace(scene_dir, capsys):
     assert rows["wave.trace"] == rows["wave"]
     # an adaptive frame's wave sets up twice: its active blocks, its inputs
     assert rows["wave.inputs"] == str(2 * len(waves))
+    # the photon pass before the frame: its rounds, by route, and its ops
+    assert rows["photons"] == "1"
+    assert int(rows["photons.round[staged]"]) > 0
+    (pas,) = [e for e in spans if e["name"] == "photons"]
+    assert pas["ts"] + pas["dur"] <= frame["ts"]
+    assert any(pas["ts"] <= e["ts"] <= pas["ts"] + pas["dur"] for e in ops)
     assert "[profile] device idle by span: no device events" in log
 
 

@@ -1111,3 +1111,189 @@ def test_telemetry_k3_totals_sum_the_calls_counts(dev, scene, chunk_map):
     torch.cuda.synchronize(dev)
     assert telemetry.k3_counts() == (sums[0], sums[1])
     telemetry.reset()
+
+
+# the photon cell's bound on a stored photon's position (gibench's
+# PHOTON_POS_TOL): a last-bit difference between the round kernel and the
+# staged round must stay under it
+PHOTON_POS_TOL = 1e-3
+
+
+def _chunk_rounds(scene, cfg, chunk, n, total, light):
+    """``_emit_chunk`` of chunk ``chunk`` (n slots of a ``total``-slot map)
+    on the round kernel (``light``: the light's constants) or the staged
+    round (None): (batch, each round's live count, launches, plain calls).
+    The rounds' spans are recorded under a profiler of the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    from gi_raytracer_tpu_torch.render import photon
+    from gi_raytracer_tpu_torch.sampling.halton import HaltonSampler
+
+    uniform = photon.ThreefryUniform(cfg.seed, scene.device)
+    start = chunk * cfg.ray_chunk
+    torch.cuda.synchronize()
+    telemetry.reset()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        b = photon._emit_chunk(scene, cfg, HaltonSampler(), uniform, chunk,
+                               start, 0, n, total, False, light)
+    torch.cuda.synchronize()
+    rounds = [sp for sp in telemetry.records() if sp.name == "photons.round"]
+    assert {sp.attrs["route"] for sp in rounds} == {
+        "staged" if light is None else "k2"}
+    telemetry.reset()
+    return (b, [sp.attrs["live"] for sp in rounds],
+            {k: v for k, v in _cuda.launches.items() if v},
+            {k: v for k, v in _cuda.plain_calls.items() if v})
+
+
+@pytest.mark.parametrize("chunk, n", [(0, 131_072), (5, 94_640)],
+                         ids=["full", "ragged"])
+def test_photon_round_kernel_matches_staged(dev, scene, chunk, n):
+    """The round kernel against the staged round on the Cornell box, on a
+    chunk of the 750,000-slot map (its first 131,072 slots; its last,
+    ragged 94,640), through all 64 rounds: the same live count each round,
+    stored masks equal bit for bit, positions, directions and colours
+    equal or, where a last bit differs, within the cell's position bound
+    (the largest difference and its lanes printed); one launch a round,
+    no plain version."""
+    from gi_raytracer_tpu_torch.ops import cuda_photon
+    from gi_raytracer_tpu_torch.render import photon
+
+    cfg = RenderConfig(photons=750_000, seed=2876543219)
+    assert photon.round_kernel_why_not(scene, cfg, None, None, False) == []
+    got, got_live, launches, plain = _chunk_rounds(
+        scene, cfg, chunk, n, 750_000, photon._light_row(scene, 0, 750_000))
+    want, want_live, _, _ = _chunk_rounds(scene, cfg, chunk, n, 750_000,
+                                          None)
+    print(f"\nround kernel {cuda_photon.round_info(scene)}; K2 "
+          f"{ci.walk_info('intersect', chunk_boxes(scene).shape[1])}")
+    print(f"chunk {chunk}: {len(got_live)} rounds, live {got_live[:4]}..."
+          f"{got_live[-2:]}, {int(got.stored.sum())} of {n} stored")
+    _rounds_match(got, got_live, launches, plain, want, want_live)
+
+
+def _rounds_match(got, got_live, launches, plain, want, want_live):
+    """The round kernel's chunk (``_chunk_rounds``) against the staged
+    round's: the same live count each round, one launch a round and no
+    plain version, stored masks equal bit for bit, positions, directions
+    and colours equal or, where a last bit differs, within the cell's
+    position bound (the largest difference and its lanes printed)."""
+    assert got_live == want_live
+    assert launches == {"photon_round": len(got_live)} and not plain
+    assert torch.equal(got.stored, want.stored)
+    for name in ("pos", "dir", "col"):
+        a, b = getattr(got, name), getattr(want, name)
+        off = (a != b).any(-1).nonzero().squeeze(1)
+        diff = float((a - b).abs().max())
+        print(f"{name}: {off.numel()} lanes differ, largest {diff:.3e}, "
+              f"lanes {off[:8].tolist()}")
+        assert diff <= PHOTON_POS_TOL, (name, diff, off[:8].tolist())
+
+
+def _glossy_box(dev):
+    """A triangle-only scene whose photons take the branches of the round
+    that the Cornell box leaves out: a glossy sphere (roughness 0.05: a
+    Phong lobe inside the specular chain) and a glossy floor (0.3: a Phong
+    lobe where the photon is stored), each with a checker texture read at
+    its vertex-interpolated uv, beside a mirror sphere with the floor's
+    checker and a diffuse back wall without vertex normals."""
+    b = SceneBuilder()
+    black = b.add_texture_const((0.0, 0.0, 0.0))
+    floor_tex = b.add_texture_checker(4, (0.8, 0.8, 0.2), (0.2, 0.8, 0.8))
+    ball_tex = b.add_texture_checker(6, (0.9, 0.5, 0.5), (0.5, 0.9, 0.5))
+    s = 4.0
+    floor = meshgen.quad_mesh((-s, -s, -s), (s, -s, -s), (-s, -s, s),
+                              (s, -s, s))
+    up = np.broadcast_to(np.array([0.0, 1.0, 0.0]), floor.shape)
+    b.add_triangles(floor, up, (floor[..., [0, 2]] + s) / (2 * s),
+                    mat_id=b.add_material(floor_tex, black, 0.3, 1.0))
+    wall = b.add_material(b.add_texture_const((0.7, 0.7, 0.7)), black, 1.0,
+                          1.0)
+    b.add_triangles(meshgen.quad_mesh((-s, -s, s), (s, -s, s), (-s, s, s),
+                                      (s, s, s)), mat_id=wall)
+    v, n, uv = meshgen.sphere_mesh((-1.2, -2.6, 0.0), 1.3, 3)
+    b.add_triangles(v, n, uv,
+                    mat_id=b.add_material(ball_tex, black, 0.05, 1.0))
+    v, n, uv = meshgen.sphere_mesh((1.6, -3.0, 0.8), 0.9, 2)
+    b.add_triangles(v, n, uv,
+                    mat_id=b.add_material(floor_tex, black, 0.0, 1.0))
+    b.add_light((0.0, 3.0, 0.0), (8.0, 8.0, 8.0), 0.3)
+    return b.build(device=dev)
+
+
+def test_photon_round_kernel_matches_staged_glossy_checker(dev):
+    """The round kernel against the staged round through every round of
+    the second 32,768-slot chunk of a 65,536-slot map of ``_glossy_box``,
+    held as on the Cornell box (``_rounds_match``); the stored photons
+    show the glossy and checker branches taken (a quarter or more lie on
+    the glossy floor, and their colours are many products of the
+    checkers')."""
+    from gi_raytracer_tpu_torch.render import photon
+
+    box = _glossy_box(dev)
+    cfg = RenderConfig(photons=65_536, ray_chunk=32_768, seed=3141592653)
+    assert photon.round_kernel_why_not(box, cfg, None, None, False) == []
+    got = _chunk_rounds(box, cfg, 1, 32_768, 65_536,
+                        photon._light_row(box, 0, 65_536))
+    want = _chunk_rounds(box, cfg, 1, 32_768, 65_536, None)
+    s = want[0].stored
+    floor = int((want[0].pos[s, 1] < -3.99).sum())
+    colours = torch.unique(want[0].col[s], dim=0).shape[0]
+    print(f"\n{len(got[1])} rounds, live {got[1][:4]}...; {int(s.sum())} "
+          f"stored, {floor} on the glossy floor, {colours} colours")
+    _rounds_match(*got, *want[:2])
+    assert floor > int(s.sum()) // 4 and colours >= 16
+
+
+def test_photon_round_route(dev, scene):
+    """``trace_photons`` takes the round kernel on the eligible box (one
+    launch a round, no K2 launch of its own), and the staged round with a
+    gradient, with another uniform source and on a scene with an analytic
+    sphere; the two routes store the same slots."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    from gi_raytracer_tpu_torch.render import photon
+
+    cfg = RenderConfig(photons=2_048, ray_chunk=1_024, seed=7)
+
+    def routes(fn):
+        telemetry.reset()
+        _cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            out = fn()
+        torch.cuda.synchronize()
+        got = [sp.attrs["route"] for sp in telemetry.records()
+               if sp.name == "photons.round"]
+        telemetry.reset()
+        return out, set(got), dict(_cuda.launches)
+
+    fast, r, launches = routes(lambda: trace_photons(scene, cfg))
+    assert r == {"k2"} and launches.get("intersect", 0) == 0
+    assert launches["photon_round"] > 0
+
+    class Replay(photon.ThreefryUniform):
+        pass
+
+    assert photon.round_kernel_why_not(
+        scene, cfg, None, Replay(cfg.seed, dev), False) == [
+            "emission uniforms from Replay, not ThreefryUniform"]
+    staged, r, launches = routes(lambda: trace_photons(
+        scene, cfg, uniform=Replay(cfg.seed, dev)))
+    assert r == {"staged"} and launches.get("photon_round", 0) == 0
+    assert torch.equal(fast.stored, staged.stored)
+    _, r, _ = routes(lambda: trace_photons(scene, cfg, differentiable=True))
+    assert r == {"staged"}
+    b = SceneBuilder()
+    white = b.add_texture_const((0.9, 0.9, 0.9))
+    black = b.add_texture_const((0.0, 0.0, 0.0))
+    v, n, uv = meshgen.sphere_mesh((0.0, -2.0, 0.0), 1.0, 1)
+    b.add_triangles(v, n, uv, mat_id=b.add_material(white, black, 1.0, 1.0))
+    b.add_sphere((0.0, 0.0, 0.0), 0.5,
+                 b.add_material(white, black, 0.0, 0.0, 1.5))
+    b.add_light((0.0, 3.0, 0.0), (8.0, 8.0, 8.0), 0.3)
+    sph = b.build(device=dev)
+    _, r, _ = routes(lambda: trace_photons(sph, cfg))
+    assert r == {"staged"}
