@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import telemetry
 from ..sampling.rng import hash_u01
 from ..scene.types import derived
 from . import cuda_intersect as ci
@@ -200,8 +201,15 @@ def _cone_pass(scene, ro, rd, hit: Hit, salt, active=None, t_max=None,
 
 
 def _analytic_passes(scene, ro, rd, hit, salt, active, t_max, ray_id):
-    hit = _sphere_pass(scene, ro, rd, hit, salt, active, t_max, ray_id)
-    return _cone_pass(scene, ro, rd, hit, salt, active, t_max, ray_id)
+    """Both analytic passes over ``hit``, as the span ``trace.analytic``
+    (its ``lanes`` and ``prims``); ``hit`` itself without spheres and
+    cones."""
+    prims = scene.n_spheres + scene.n_cones
+    if not prims:
+        return hit
+    with telemetry.span("trace.analytic", lanes=ro.shape[0], prims=prims):
+        hit = _sphere_pass(scene, ro, rd, hit, salt, active, t_max, ray_id)
+        return _cone_pass(scene, ro, rd, hit, salt, active, t_max, ray_id)
 
 
 def trace_tables(scene):

@@ -203,22 +203,28 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
     return st.radiance, (st.n_closest, st.n_shadow)
 
 
+def wave_route(scene, cfg) -> str:
+    """The route ``dispatch_wave`` takes for ``scene``: ``"k1"``, the
+    megakernel (``integrator`` "auto" or "mega" and the scene eligible),
+    or ``"staged"``, the staged ``radiance_wave``."""
+    from ..ops.cuda_megakernel import mega_eligible
+    return ("k1" if cfg.integrator in ("auto", "mega")
+            and mega_eligible(scene, cfg) else "staged")
+
+
 def dispatch_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt=0,
                   photon_map=None, lane_base=0, lane_ids=None,
                   prim_rows=None):
-    """Render-path wave: the megakernel for eligible scenes (``integrator``
-    "auto" or "mega"), the staged ``radiance_wave`` otherwise.  Returns
-    (radiance (R,3), (n_closest, n_shadow))."""
-    from ..ops.cuda_megakernel import (mega_eligible, mega_why_not,
-                                       radiance_wave_mega)
+    """Render-path wave down ``wave_route``'s route: the megakernel or the
+    staged ``radiance_wave``.  Returns (radiance (R,3), (n_closest,
+    n_shadow))."""
+    from ..ops.cuda_megakernel import mega_why_not, radiance_wave_mega
 
-    use_mega = False
-    if cfg.integrator in ("auto", "mega"):
-        use_mega = mega_eligible(scene, cfg)
-        if not use_mega and cfg.integrator == "mega":
-            raise ValueError("integrator='mega' requested but the scene is "
-                             "not megakernel-eligible: "
-                             + "; ".join(mega_why_not(scene, cfg)))
+    use_mega = wave_route(scene, cfg) == "k1"
+    if not use_mega and cfg.integrator == "mega":
+        raise ValueError("integrator='mega' requested but the scene is "
+                         "not megakernel-eligible: "
+                         + "; ".join(mega_why_not(scene, cfg)))
     if use_mega:
         R = ro.shape[0]
         lane = (lane_ids if lane_ids is not None
@@ -358,7 +364,8 @@ class Renderer:
         N = self.width * self.height
         with telemetry.span("wave.inputs"):
             ro, rd, sx_all, sy_all = self.wave_inputs(wave)
-        with telemetry.span("wave.trace"):
+        with telemetry.span("wave.trace",
+                            route=wave_route(self.scene, self.cfg)):
             out, (n_c, n_s) = dispatch_wave(
                 self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
                 self.photon_map, lane_base=wave * N + self._lane0,
@@ -393,7 +400,8 @@ class Renderer:
                         torch.zeros((), dtype=torch.int64,
                                     device=self.device))
             ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos)
-        with telemetry.span("wave.trace"):
+        with telemetry.span("wave.trace",
+                            route=wave_route(self.scene, self.cfg)):
             out, (n_c, n_s) = dispatch_wave(
                 self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
                 self.photon_map, lane_ids=(wave * self.width * self.height
@@ -473,14 +481,20 @@ class Renderer:
         and fold it into the state.  ``reduce_rays(n)`` turns the wave's
         ray count into the one added to the counter (the ranks' sum, in a
         sharded render)."""
-        with telemetry.span("wave", wave=s):
+        with telemetry.span("wave", wave=s) as sp:
             if self.block_adaptive:
                 with telemetry.span("wave.inputs"):
                     blocks = self.active_blocks(st["active"])
                 c, rays = self.block_wave(s, blocks)
-                self.wave_blocks.append(blocks.numel())
+                n_blocks = blocks.numel()
+                self.wave_blocks.append(n_blocks)
+                lanes = 256 * n_blocks
             else:
                 c, rays = self.wave_radiance(s)
+                n_blocks = -(-self.band_height // 16) * -(-self.width // 16)
+                lanes = self.band_height * self.width
+            if sp is not None:
+                sp.attrs.update(blocks=n_blocks, lanes=lanes)
             with telemetry.span("wave.fold"):
                 if reduce_rays is not None:
                     rays = reduce_rays(rays)

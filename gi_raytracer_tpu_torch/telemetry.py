@@ -1,17 +1,18 @@
 """The program's spans and counters, recorded while a torch profiler runs.
 
 A span is a block of host time at a layer boundary (a frame, a wave and
-its parts, a photon pass and its retry rounds, the photon grid, a K3
-call, a train step, the kNN VJP); a sync is a span named ``"sync"`` around
-one host sync, its ``site`` attribute naming the call site: one
-operation that waits for the card when its tensors are there (a read of
-a result, a ``nonzero``, a copy of host numbers to the card; on CPU
-tensors the span marks the same operation, which waits for nothing).  Nothing is
-recorded unless a torch profiler is enabled (``torch.profiler.profile``
-of any activity), or a span that was recorded is still open (a child
-then records too, on whichever thread runs it: autograd runs a CUDA
-backward on a thread of its own).  There is no other switch: a run that
-profiles nothing records nothing, and a span then costs one check.
+its parts, a trace's analytic passes, a photon pass and its retry
+rounds, the photon grid, a K3 call, a train step, the kNN VJP); a sync
+is a span named ``"sync"`` around one host sync, its ``site`` attribute
+naming the call site: one operation that waits for the card when its
+tensors are there (a read of a result, a ``nonzero``, a copy of host
+numbers to the card; on CPU tensors the span marks the same operation,
+which waits for nothing). Nothing is recorded unless a torch profiler is
+enabled (``torch.profiler.profile`` of any activity), or a span that was
+recorded is still open (a child then records too, on whichever thread
+runs it: autograd runs a CUDA backward on a thread of its own). There is
+no other switch: a run that profiles nothing records nothing, and a span
+then costs one check.
 
 Spans never enter the profiler's event stream (no ``record_function``, no
 NVTX), so a device trace is the same with and without them.  Their
@@ -23,9 +24,13 @@ span open on the host when it began (:func:`idle_by_span`).
 Each record holds its name, start and end in ns, its id, its parent's id
 (None for a root) and its root's id (the frame, the pass, the step: the
 spans of one job share it), and the attributes it was given, host-known
-ints only but a ``photons.round`` span's ``route`` (``"k2"``: the round
-kernel, an instance of K2's walk kernel; ``"staged"``).  Records are
-kept in memory: :func:`records` and :func:`reset`.
+ints only but the ``route`` of a ``photons.round`` span (``"k2"``: the
+round kernel, an instance of K2's walk kernel; ``"staged"``) and of a
+``wave.trace`` span (``"k1"``: the megakernel; ``"staged"``).  A
+``wave`` span's ``blocks`` and ``lanes`` count the 16x16 blocks and the
+lanes it traced; a ``trace.analytic`` span's ``lanes`` and ``prims`` the
+rays and the spheres and cones its passes test.  Records are kept in
+memory: :func:`records` and :func:`reset`.
 
 K3's tier counts: while recording, the kNN kernel adds each launch's
 queued and taken counts to two 64-bit totals in pinned host memory

@@ -171,7 +171,10 @@ def test_cli_render_profile_writes_a_trace(scene_dir, capsys, monkeypatch):
     rows = dict(re.findall(r"\[profile\] (\S+) +(\d+) +[\d.]+ +[\d.]+\n",
                            log))
     assert rows["frame"] == "1" and rows["wave"] == str(len(waves))
-    assert rows["wave.trace"] == rows["wave"]
+    # the scene's spheres and cone take the staged wave, and every closest
+    # hit and shadow ray of it the analytic passes
+    assert rows["wave.trace[staged]"] == rows["wave"]
+    assert int(rows["trace.analytic"]) > 0
     # an adaptive frame's wave sets up twice: its active blocks, its inputs
     assert rows["wave.inputs"] == str(2 * len(waves))
     # the photon pass before the frame: its rounds, by route, and its ops
