@@ -66,6 +66,11 @@ card at the paths' shapes:
   image max error under 1e-5 with the ray count equal, loss and updated
   parameters within rel 1e-5.
 
+The wave-inputs kernel (``csrc/wave_inputs.cu``) is held bit for bit to
+its plain version (``Renderer.wave_inputs_plain``) on wave 0 at 512x512,
+depth 8 and at 256x256, depth 3, and its device ms a call logged beside
+the bound of its output bytes and the plain version's ms.
+
 K1 is also held, on adaptive renders of the mesh Cornell box (8 to 32 spp,
 with and without the map), to the same render with block compaction off:
 its waves then carry the lane ids of the blocks still active, with gaps.
@@ -261,6 +266,7 @@ PEAK_BYTES = 3.35e12       # device memory bytes per second
 OPS_PER_TEST = 41
 OPS_PER_SLAB = 27
 OPS_PER_CANDIDATE = 8      # K3: d^2 of one photon (3 sub, 3 mul, 2 add)
+WAVE_INPUT_CALLS = 50      # wave-inputs kernel calls timed in a row
 
 
 def log(*args):
@@ -476,6 +482,60 @@ def k1_wave(scene, cfg, cam):
     ms = cuda_ms(lambda: radiance_wave_mega(scene, cfg, *wave[:4], lane, 0,
                                             None), 5)
     return wave, int(n_closest), ms
+
+
+def wave_inputs_row(scene, cam):
+    """The wave-inputs kernel against its plain version
+    (``Renderer.wave_inputs_plain``: ``HaltonSampler.sample`` of every dim
+    and ``primary_rays``) on wave 0 of the render cells' shapes, 512x512
+    at depth 8 and 256x256 at depth 3: every output bit-equal, the
+    kernel's device ms a call (torch.profiler over WAVE_INPUT_CALLS
+    calls), CUDA-event ms of back-to-back calls (the host's pace) and the
+    plain version's, beside the bound of its output bytes.  Returns the
+    kernels-table row of the 512x512 wave."""
+    import torch
+    from gi_raytracer_tpu_torch.config import RenderConfig
+    from gi_raytracer_tpu_torch.ops import _cuda
+    from gi_raytracer_tpu_torch.render import Renderer
+    row = None
+    for size, depth in ((WIDTH, DEPTH), (256, 3)):
+        r = Renderer(scene, cam, RenderConfig(min_samples=SPP,
+                                              max_samples=SPP,
+                                              max_depth=depth), size, size)
+        require(r.inputs_route() == "kernel", ("wave inputs route",
+                                               size, depth))
+        frame = r.frame_camera()
+
+        def call():
+            return r.wave_inputs(0, cam=frame)
+
+        n0 = _cuda.launches["wave_inputs"]
+        got = call()
+        require(_cuda.launches["wave_inputs"] == n0 + 1, "one launch")
+        want = r.wave_inputs_plain(0)
+        same = all(torch.equal(g.contiguous().view(torch.int32),
+                               w.contiguous().view(torch.int32))
+                   for g, w in zip(got, want))
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        label = f"{size}x{size} depth {depth}"
+        device = profile(f"wave inputs {label}, {WAVE_INPUT_CALLS} calls",
+                         lambda: [call() for _ in range(WAVE_INPUT_CALLS)],
+                         host=False)[0] / WAVE_INPUT_CALLS
+        ms = cuda_ms(call, WAVE_INPUT_CALLS)
+        plain_ms = cuda_ms(lambda: r.wave_inputs_plain(0), 5)
+        b_ms, b_by = bound(0, size * size * 4 * (2 * depth + 3))
+        log(f"wave inputs {label}: bit-equal {same} (largest difference "
+            f"{err:.3e}); device ms a call {device:.4f}, CUDA-event ms "
+            f"{ms:.4f}, plain ms {plain_ms:.3f}; bound ms {b_ms:.4f} "
+            f"({b_by}: the outputs)")
+        require(same, ("wave inputs bit-equal", label))
+        if row is None:
+            row = dict(name="wave_inputs", route="cuda",
+                       source="gi_raytracer_tpu_torch/csrc/wave_inputs.cu",
+                       replaces=None, max_abs_err=err, ms=device,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+    return row
 
 
 def k3_queries(scene, cfg, cam):
@@ -1460,7 +1520,7 @@ def main(argv) -> int:
     with Phase("main path"):
         pm, cornell_batch = drive(
             "Cornell main path", lambda: cornell_path(scene, cfg, cam),
-            need=("photon_round", "megakernel", "knn"),
+            need=("photon_round", "megakernel", "knn", "wave_inputs"),
             absent=("stream", "intersect"))
     profile("Cornell render with the map",
             Renderer(scene, cam, cfg, WIDTH, HEIGHT, photon_map=pm).render)
@@ -1660,6 +1720,9 @@ def main(argv) -> int:
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del wave
 
+    with Phase("wave inputs"):
+        rows["wave_inputs"] = wave_inputs_row(scene, cam)
+
     def knn_cost(pmap, pts):
         """(FP32 operations, bytes, byte parts, candidates a query, window
         stats) of a kNN estimate: d^2 of every candidate of the whole
@@ -1753,7 +1816,8 @@ def main(argv) -> int:
             r, img, st, secs = drive(
                 f"K1 block-adaptive Cornell {label}",
                 lambda: adaptive_render(scene, a_cfg, pmap, True),
-                need=("megakernel",) + (("knn",) if pmap is not None else ()),
+                need=("megakernel", "wave_inputs")
+                + (("knn",) if pmap is not None else ()),
                 absent=("stream", "intersect"))
             _, img_f, st_f, secs_f = adaptive_render(scene, a_cfg, pmap,
                                                      False)
@@ -2017,7 +2081,8 @@ def main(argv) -> int:
             k4 = k4_rays(big, n_t)
         with Phase(f"phase A: terrain {n_t}"):
             r, img = drive(f"phase A terrain {big.n_tris}",
-                           lambda: big_path(big), need=("stream",),
+                           lambda: big_path(big),
+                           need=("stream", "wave_inputs"),
                            absent=("intersect", "megakernel"))
         if n_t == terrain.BIG_N:
             save_png(r, img, "terrain_256.png")

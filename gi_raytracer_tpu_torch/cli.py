@@ -43,7 +43,8 @@ copies and fills (the device alone), on the CPU the host's ops, and a row
 of the program's spans (photon pass, rounds, grid, frame, waves, syncs,
 K3 calls: ``telemetry``) on the same clock.  It prints each span's count
 and self time (the photon pass's rounds by route: ``photons.round[k2]``
-for the round kernel, ``photons.round[staged]``) and, on the card, the
+for the round kernel, ``photons.round[staged]``; a wave's set-up as
+``wave.inputs[kernel]`` or ``wave.inputs[torch]``) and, on the card, the
 device's idle seconds by the span open when each gap began.  It acts on
 the single-process render only (not with ``--devices`` or
 ``--distributed``), as in the JAX package, and leaves the image, the ray

@@ -40,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
-KERNELS = ("intersect", "megakernel", "knn", "stream", "photon_round")
+KERNELS = ("intersect", "megakernel", "knn", "stream", "photon_round",
+           "wave_inputs")
 
 _lib = None
 _VP, _F, _I, _U = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint
@@ -62,6 +63,8 @@ _SIGNATURES = {
     "gi_photon_round_launch": [_VP] * 3 + [_I, _I, _F] + [_VP] * 7
     + [_I] * 5 + [_U, _U, _I, _F, _F, _VP, _VP],
     "gi_photon_round_info": [_I, _VP],
+    "gi_wave_inputs_launch": [_VP] * 4 + [_I, _VP, _I, _I, _U, _F, _F, _F,
+                                          _F] + [_VP] * 5,
 }
 
 

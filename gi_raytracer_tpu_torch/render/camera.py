@@ -39,17 +39,26 @@ class Camera:
         return pos, fwd, up, cam_right
 
 
-def primary_rays(cam: Camera, width: int, height: int, dx, dy):
-    """Rays through screen positions dx in [0,width), dy in [0,height);
-    returns (origins (R,3), directions (R,3))."""
-    dt = dx.dtype
-    pos, fwd, up, cam_right = cam.basis(dt, dx.device)
+def ray_frame(cam: Camera, width: int, height: int, dtype=torch.float32,
+              device=None):
+    """(pos, up, cam_right, screen center, half-width shw, half-height shh):
+    the constants ``primary_rays`` builds its rays from, the same for every
+    ray of a frame."""
+    pos, fwd, up, cam_right = cam.basis(dtype, device)
     with telemetry.sync("camera.diag"):
         diag2 = torch.tensor(float(width * width + height * height),
-                             dtype=dt, device=dx.device)
+                             dtype=dtype, device=device)
     shw = (cam.sensor_diag * width) / torch.sqrt(diag2)
     shh = shw * (height / width)
     center = pos + cam.focal_dist * fwd
+    return pos, up, cam_right, center, shw, shh
+
+
+def primary_rays(cam: Camera, width: int, height: int, dx, dy):
+    """Rays through screen positions dx in [0,width), dy in [0,height);
+    returns (origins (R,3), directions (R,3))."""
+    pos, up, cam_right, center, shw, shh = ray_frame(cam, width, height,
+                                                     dx.dtype, dx.device)
     pixel = (center
              + (shw * (dx[:, None] / width - 0.5)) * cam_right[None, :]
              - (shh * (dy[:, None] / height - 0.5)) * up[None, :])

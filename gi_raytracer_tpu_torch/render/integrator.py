@@ -20,6 +20,14 @@ Counterpart of ``gi_raytracer_tpu.render.integrator``:
   and count only the lanes they trace.  The JAX renderer groups those
   blocks into fixed-size dispatches for its static shapes; the lane ids,
   and so the image and the counters, do not depend on the grouping.
+* A wave's set-up (its Halton dims and primary rays,
+  ``Renderer.wave_inputs``) is one launch of the wave-inputs kernel
+  (``ops.cuda_wave_inputs``) where ``wave_inputs_why_not`` is empty: on the card, float32, at most 16
+  bounces (every dim in Halton's arithmetic range) and no camera tensor
+  that autograd must see.  Everywhere else it is torch code
+  (``Renderer.wave_inputs_plain``), the kernel's plain version.  The
+  camera's constants are taken once a frame (``Renderer.start``).  Each
+  ``wave.inputs`` span names its ``route``: ``"kernel"`` or ``"torch"``.
 * In a fog scene every bounce marches the fog after the closest hit
   (``atmosphere.fog_override``) and every shadow ray through it
   (``atmosphere.fog_occludes``).
@@ -35,6 +43,7 @@ Counterpart of ``gi_raytracer_tpu.render.integrator``:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -42,14 +51,14 @@ import torch
 
 from .. import telemetry
 from ..config import RenderConfig
-from ..ops import _cuda
+from ..ops import _cuda, cuda_wave_inputs
 from ..ops.intersect import trace_closest_rows, trace_any
 from ..sampling.halton import HaltonSampler, HaltonEnum, MAX_QMC_DIMS
 from ..sampling import rng
 from ..sampling.rng import Purpose, hash_u01
 from ..scene.types import derived
 from .atmosphere import fog_occludes, fog_override
-from .camera import Camera, primary_rays
+from .camera import Camera, primary_rays, ray_frame
 from .geom import normalize, random_unit_vec, PI
 from .shading import build_prim_rows, shade_from_rows, secondary_ray
 
@@ -237,6 +246,36 @@ def dispatch_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt=0,
                          prim_rows=prim_rows)
 
 
+def _needs_grad(v) -> bool:
+    if torch.is_tensor(v):
+        return v.requires_grad
+    return isinstance(v, (tuple, list)) and any(map(_needs_grad, v))
+
+
+def wave_inputs_why_not(renderer) -> list:
+    """The reasons ``renderer``'s wave set-up cannot run as the wave-inputs
+    kernel (empty: it does)."""
+    why = []
+    cam, cfg = renderer.camera, renderer.cfg
+    if renderer.device.type != "cuda":
+        why.append(f"tensors on {renderer.device.type}, not the card")
+    if cfg.dtype != "float32":
+        why.append(f"dtype {cfg.dtype}")
+    if cfg.max_depth > cuda_wave_inputs.MAX_DEPTH:
+        why.append(f"max_depth {cfg.max_depth} > "
+                   f"{cuda_wave_inputs.MAX_DEPTH}: dims past Halton's "
+                   f"arithmetic range")
+    if type(renderer.sampler) is not HaltonSampler:
+        why.append(f"sampler {type(renderer.sampler).__name__}, not "
+                   f"HaltonSampler")
+    if torch.is_grad_enabled() and any(
+            _needs_grad(getattr(cam, f.name))
+            for f in dataclasses.fields(cam)):
+        why.append("the camera carries a gradient: autograd must see the "
+                   "operations")
+    return why
+
+
 class Renderer:
     """Frame renderer: one QMC wave per sample, the full frame or (adaptive
     renders) the 16x16 blocks still active.  ``block_compaction=False``
@@ -292,6 +331,11 @@ class Renderer:
                                and Hb % B == 0 and width % B == 0)
         # blocks traced by each wave of the last render (block-adaptive)
         self.wave_blocks: list = []
+        # the frame's camera constants on the kernel route (``start``), and
+        # the wave-inputs kernel's launch with the sampler and depth it
+        # was made for
+        self._frame_cam = None
+        self._inputs_launch = None
 
     @property
     def dtype(self):
@@ -323,9 +367,42 @@ class Renderer:
                         torch.float64, idx_flat.device).to(self.dtype))
         return torch.stack(sx), torch.stack(sy)
 
-    def wave_inputs(self, wave: int, pos=None):
+    def inputs_route(self) -> str:
+        """The route of ``wave_inputs``: ``"kernel"``, the wave-inputs
+        kernel (``wave_inputs_why_not`` empty), or ``"torch"``,
+        ``wave_inputs_plain``."""
+        return "torch" if wave_inputs_why_not(self) else "kernel"
+
+    def frame_camera(self):
+        """The (14,) camera constants of a frame's rays on the kernel route:
+        position, up, right, screen centre, half-width and half-height, by
+        ``primary_rays``' own arithmetic (``camera.ray_frame``)."""
+        pos, up, right, center, shw, shh = ray_frame(
+            self.camera, self.width, self.height, self.dtype, self.device)
+        return torch.cat([pos, up, right, center, shw.reshape(1),
+                          shh.reshape(1)])
+
+    def wave_inputs(self, wave: int, pos=None, cam=None):
         """Block-ordered (ro, rd, sx_all, sy_all) of wave ``wave``: the full
-        frame, or the block-ordered positions ``pos``."""
+        frame, or the block-ordered positions ``pos``; down
+        ``inputs_route``'s route.  ``cam``: the frame's ``frame_camera``
+        (taken anew when None)."""
+        if self.inputs_route() == "torch":
+            return self.wave_inputs_plain(wave, pos)
+        depth = self.cfg.max_depth
+        kept = self._inputs_launch
+        if kept is None or kept[0] != (self.sampler, depth):
+            kept = ((self.sampler, depth), cuda_wave_inputs.wave_launcher(
+                self.sampler, self._offsets_t, self._perm_t, depth,
+                self._index_bits, self.enum.scale_x, self.enum.scale_y,
+                self.width, self.height))
+            self._inputs_launch = kept
+        return kept[1](wave * self.enum.increment, pos,
+                       self.frame_camera() if cam is None else cam)
+
+    def wave_inputs_plain(self, wave: int, pos=None):
+        """``wave_inputs`` as torch code on any device: the wave-inputs
+        kernel's plain version, and the route of everything it refuses."""
         idx = ((self._offsets_t + wave * self.enum.increment)
                & 0xFFFFFFFF)[self._perm_t]
         if pos is not None:
@@ -358,12 +435,12 @@ class Renderer:
                                prim_rows=build_prim_rows(scene))
         return out[self._inv_perm_t]
 
-    def wave_radiance(self, wave: int):
+    def wave_radiance(self, wave: int, cam=None):
         """One wave of the band -> ((Hb, W, 3) raster radiance, ray
-        count)."""
+        count); ``cam`` as ``wave_inputs`` takes it."""
         N = self.width * self.height
-        with telemetry.span("wave.inputs"):
-            ro, rd, sx_all, sy_all = self.wave_inputs(wave)
+        with telemetry.span("wave.inputs", route=self.inputs_route()):
+            ro, rd, sx_all, sy_all = self.wave_inputs(wave, cam=cam)
         with telemetry.span("wave.trace",
                             route=wave_route(self.scene, self.cfg)):
             out, (n_c, n_s) = dispatch_wave(
@@ -382,15 +459,15 @@ class Renderer:
         with telemetry.sync("wave.blocks"):
             return torch.nonzero(act.reshape(-1)).squeeze(1)
 
-    def block_wave(self, wave: int, blocks):
+    def block_wave(self, wave: int, blocks, cam=None):
         """One wave over the band's 16x16 blocks ``blocks`` (block-major
         indices) as one dispatch.  Block b's lane j has lane id wave*N +
         lane0 + b*256 + j, as in the full frame.  Returns ((Hb, W, 3)
         raster radiance, zero outside those blocks; the ray count of the
-        traced lanes)."""
+        traced lanes); ``cam`` as ``wave_inputs`` takes it."""
         H, W = self.band_height, self.width
         Nb = H * W
-        with telemetry.span("wave.inputs"):
+        with telemetry.span("wave.inputs", route=self.inputs_route()):
             pos = (blocks[:, None] * 256
                    + torch.arange(256, device=self.device)[None, :]
                    ).reshape(-1)
@@ -399,7 +476,7 @@ class Renderer:
                 return (c.reshape(H, W, 3),
                         torch.zeros((), dtype=torch.int64,
                                     device=self.device))
-            ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos)
+            ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos, cam)
         with telemetry.span("wave.trace",
                             route=wave_route(self.scene, self.cfg)):
             out, (n_c, n_s) = dispatch_wave(
@@ -466,7 +543,8 @@ class Renderer:
     def start(self, state=None):
         """The state a render starts from (``state0`` or ``state``, with an
         int64 ray counter: an older checkpoint's float32 one is cast, a
-        missing one starts at 0), and an empty ``wave_blocks`` record."""
+        missing one starts at 0), and an empty ``wave_blocks`` record; on
+        the kernel route it takes the frame's camera constants."""
         st = state if state is not None else self.state0()
         rays = st.get("rays")
         if rays is None:
@@ -474,6 +552,8 @@ class Renderer:
         elif rays.dtype != torch.int64:
             rays = rays.to(torch.int64)
         self.wave_blocks = []
+        self._frame_cam = (self.frame_camera()
+                           if self.inputs_route() == "kernel" else None)
         return dict(st, rays=rays)
 
     def step(self, st, s: int, reduce_rays=None):
@@ -483,14 +563,15 @@ class Renderer:
         sharded render)."""
         with telemetry.span("wave", wave=s) as sp:
             if self.block_adaptive:
-                with telemetry.span("wave.inputs"):
+                with telemetry.span("wave.inputs",
+                                    route=self.inputs_route()):
                     blocks = self.active_blocks(st["active"])
-                c, rays = self.block_wave(s, blocks)
+                c, rays = self.block_wave(s, blocks, self._frame_cam)
                 n_blocks = blocks.numel()
                 self.wave_blocks.append(n_blocks)
                 lanes = 256 * n_blocks
             else:
-                c, rays = self.wave_radiance(s)
+                c, rays = self.wave_radiance(s, self._frame_cam)
                 n_blocks = -(-self.band_height // 16) * -(-self.width // 16)
                 lanes = self.band_height * self.width
             if sp is not None:

@@ -34,6 +34,10 @@ def _first_primes(n: int) -> tuple:
 PRIMES = _first_primes(256)
 MAX_QMC_DIMS = len(PRIMES)
 ARITH_MAX_PRIME = 150
+ARITH_PRIMES = tuple(p for p in PRIMES if p <= ARITH_MAX_PRIME)
+# each base's first entry in ``HaltonSampler.arith_perms``' table
+ARITH_FIRST = dict(zip(ARITH_PRIMES,
+                       np.cumsum((0,) + ARITH_PRIMES[:-1]).tolist()))
 _SCALE_EPS = 0.9999998807907104   # keeps results strictly in [0,1)
 
 
@@ -178,6 +182,19 @@ class HaltonSampler:
         while needed < K and p ** needed < (1 << index_bits):
             needed += 1
         return self._perms[p], needed, K - needed, np.float32(scale)
+
+    def arith_perms(self, device=None) -> torch.Tensor:
+        """The digit permutations of every base in ``ARITH_PRIMES``, one
+        after another (base p's from ``ARITH_FIRST[p]``), as a uint8 tensor
+        on ``device``, uploaded once: the table the wave-inputs kernel
+        reads."""
+        key = ("arith_perms", torch.device(device or "cpu"))
+        if key not in self._dev_cache:
+            table = np.concatenate([self._perms[p] for p in ARITH_PRIMES])
+            with telemetry.sync("halton.table"):
+                self._dev_cache[key] = torch.as_tensor(
+                    table.astype(np.uint8), device=device)
+        return self._dev_cache[key]
 
     def _sample_arith(self, p: int, index: torch.Tensor,
                       index_bits: int) -> torch.Tensor:

@@ -25,12 +25,13 @@ Each record holds its name, start and end in ns, its id, its parent's id
 (None for a root) and its root's id (the frame, the pass, the step: the
 spans of one job share it), and the attributes it was given, host-known
 ints only but the ``route`` of a ``photons.round`` span (``"k2"``: the
-round kernel, an instance of K2's walk kernel; ``"staged"``) and of a
-``wave.trace`` span (``"k1"``: the megakernel; ``"staged"``).  A
-``wave`` span's ``blocks`` and ``lanes`` count the 16x16 blocks and the
-lanes it traced; a ``trace.analytic`` span's ``lanes`` and ``prims`` the
-rays and the spheres and cones its passes test.  Records are kept in
-memory: :func:`records` and :func:`reset`.
+round kernel, an instance of K2's walk kernel; ``"staged"``), of a
+``wave.trace`` span (``"k1"``: the megakernel; ``"staged"``) and of a
+``wave.inputs`` span (``"kernel"``: the wave-inputs kernel;
+``"torch"``).  A ``wave`` span's ``blocks`` and ``lanes`` count the 16x16
+blocks and the lanes it traced; a ``trace.analytic`` span's ``lanes`` and
+``prims`` the rays and the spheres and cones its passes test.  Records are
+kept in memory: :func:`records` and :func:`reset`.
 
 K3's tier counts: while recording, the kNN kernel adds each launch's
 queued and taken counts to two 64-bit totals in pinned host memory

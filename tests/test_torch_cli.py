@@ -175,8 +175,10 @@ def test_cli_render_profile_writes_a_trace(scene_dir, capsys, monkeypatch):
     # hit and shadow ray of it the analytic passes
     assert rows["wave.trace[staged]"] == rows["wave"]
     assert int(rows["trace.analytic"]) > 0
-    # an adaptive frame's wave sets up twice: its active blocks, its inputs
-    assert rows["wave.inputs"] == str(2 * len(waves))
+    # an adaptive frame's wave sets up twice: its active blocks, its
+    # inputs; on the CPU by torch code
+    assert rows["wave.inputs[torch]"] == str(2 * len(waves))
+    assert "wave.inputs[kernel]" not in rows
     # the photon pass before the frame: its rounds, by route, and its ops
     assert rows["photons"] == "1"
     assert int(rows["photons.round[staged]"]) > 0

@@ -1297,3 +1297,106 @@ def test_photon_round_route(dev, scene):
     sph = b.build(device=dev)
     _, r, _ = routes(lambda: trace_photons(sph, cfg))
     assert r == {"staged"}
+
+
+# ---- the wave-inputs kernel (csrc/wave_inputs.cu) --------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _wave_inputs_equal(r, wave, pos=None):
+    """One kernel launch of ``r.wave_inputs`` against its plain version:
+    (ro, rd, sx_all, sy_all) bit for bit, shapes and dtypes alike."""
+    before = _cuda.launches["wave_inputs"]
+    got = r.wave_inputs(wave, pos)
+    assert _cuda.launches["wave_inputs"] == before + 1
+    want = r.wave_inputs_plain(wave, pos)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        assert torch.equal(_bits(g), _bits(w))
+    return got
+
+
+@pytest.mark.parametrize("size, depth, wave", [(512, 8, 0), (512, 8, 7),
+                                               (256, 3, 0)])
+def test_wave_inputs_kernel_matches_plain(dev, scene, size, depth, wave):
+    """The render cells' waves (512x512 at depth 8, waves 0 and 7; 256x256
+    at depth 3): every Halton dim and the primary rays bit-equal to
+    ``HaltonSampler.sample`` and ``primary_rays``."""
+    r = Renderer(scene, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
+                 RenderConfig(min_samples=8, max_samples=8, max_depth=depth),
+                 size, size)
+    assert r.inputs_route() == "kernel"
+    assert r._index_bits == (22 if size == 512 else 21)
+    ro, rd, sx, sy = _wave_inputs_equal(r, wave)
+    assert sx.shape == (depth, size * size) and rd.shape == (size * size, 3)
+
+
+def test_wave_inputs_kernel_on_a_block_wave(dev, scene):
+    """A block wave over drawn 16x16 blocks of the adaptive 8-32 spp frame
+    (24 index bits): the kernel's lanes are ``pos``'s, as the plain
+    version's."""
+    r = Renderer(scene, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
+                 RenderConfig(min_samples=8, max_samples=32, max_depth=8),
+                 512, 512)
+    assert r.block_adaptive and r._index_bits == 24
+    g = torch.Generator(device=dev).manual_seed(3)
+    blocks = torch.sort(torch.randperm(1024, generator=g, device=dev)[:417])[0]
+    pos = (blocks[:, None] * 256 + torch.arange(256, device=dev)).reshape(-1)
+    _wave_inputs_equal(r, 19, pos)
+    ro, rd, sx, sy = r.wave_inputs(19)
+    got = r.wave_inputs(19, pos)
+    assert torch.equal(got[1], rd[pos]) and torch.equal(got[2], sx[:, pos])
+
+
+@pytest.mark.parametrize("scramble", ["faure", "random"])
+def test_wave_inputs_kernel_past_2_32(dev, scene, scramble):
+    """Waves whose indices wrap past 2**32 (wave 11,507 of a 512x512 frame
+    wraps its lanes with offsets past 2,560; wave 40,000 every lane), under
+    Faure and shuffled digit permutations (whose zero digits' tail is not
+    0), at depth 16, the last of the arithmetic range."""
+    from gi_raytracer_tpu_torch.sampling.halton import HaltonSampler
+
+    r = Renderer(scene, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
+                 RenderConfig(max_depth=16), 512, 512)
+    r.sampler = HaltonSampler(scramble, seed=11)
+    assert r.inputs_route() == "kernel"
+    assert 11_507 * r.enum.increment + 2_560 == 2 ** 32
+    for wave in (11_507, 40_000):
+        _wave_inputs_equal(r, wave)
+
+
+def test_wave_inputs_kernel_once_a_wave(dev, scene):
+    """A render launches the kernel once a wave, every wave's set-up span
+    names the kernel route, and the frame takes the camera's four copies
+    once; with a camera that carries a gradient under grad mode the set-up
+    is the plain version's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+
+    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
+    r = Renderer(scene, cam, RenderConfig(min_samples=3, max_samples=3,
+                                          max_depth=3), 64, 64)
+    telemetry.reset()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        r.render()
+    torch.cuda.synchronize()
+    recs = telemetry.records()
+    telemetry.reset()
+    assert _cuda.launches["wave_inputs"] == 3
+    assert [sp.attrs.get("route") for sp in recs
+            if sp.name == "wave.inputs"] == ["kernel"] * 3
+    sites = [sp.attrs["site"] for sp in recs if sp.name == "sync"]
+    assert sum(s.startswith("camera.") for s in sites) == 4
+    r.camera = Camera(pos=torch.tensor(CAMERA_POS, device=dev,
+                                       requires_grad=True),
+                      look_at=CAMERA_LOOK_AT)
+    from gi_raytracer_tpu_torch.render.integrator import wave_inputs_why_not
+    assert wave_inputs_why_not(r) == [
+        "the camera carries a gradient: autograd must see the operations"]
+    n = _cuda.launches["wave_inputs"]
+    ro, rd, _, _ = r.wave_inputs(0)
+    assert _cuda.launches["wave_inputs"] == n and rd.requires_grad
