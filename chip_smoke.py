@@ -502,17 +502,16 @@ def wave_inputs_row(scene, cam):
         r = Renderer(scene, cam, RenderConfig(min_samples=SPP,
                                               max_samples=SPP,
                                               max_depth=depth), size, size)
-        require(r.inputs_route() == "kernel", ("wave inputs route",
-                                               size, depth))
-        frame = r.frame_camera()
+        frame = r.frame_routes()
+        require(frame.inputs == "kernel", ("wave inputs route", size, depth))
 
         def call():
-            return r.wave_inputs(0, cam=frame)
+            return r.wave_inputs(0, frame=frame)
 
         n0 = _cuda.launches["wave_inputs"]
         got = call()
         require(_cuda.launches["wave_inputs"] == n0 + 1, "one launch")
-        want = r.wave_inputs_plain(0)
+        want = r.wave_inputs_plain(r.halton_index(0))
         same = all(torch.equal(g.contiguous().view(torch.int32),
                                w.contiguous().view(torch.int32))
                    for g, w in zip(got, want))
@@ -522,7 +521,8 @@ def wave_inputs_row(scene, cam):
                          lambda: [call() for _ in range(WAVE_INPUT_CALLS)],
                          host=False)[0] / WAVE_INPUT_CALLS
         ms = cuda_ms(call, WAVE_INPUT_CALLS)
-        plain_ms = cuda_ms(lambda: r.wave_inputs_plain(0), 5)
+        plain_ms = cuda_ms(lambda: r.wave_inputs_plain(r.halton_index(0)),
+                           5)
         b_ms, b_by = bound(0, size * size * 4 * (2 * depth + 3))
         log(f"wave inputs {label}: bit-equal {same} (largest difference "
             f"{err:.3e}); device ms a call {device:.4f}, CUDA-event ms "
@@ -570,9 +570,9 @@ def k3_wave_queries(scene, cfg, cam, pm):
     with the map (K1's query records, compacted; one estimate a wave on
     the card): (points, directions), recorded from the estimates."""
     import torch
-    from gi_raytracer_tpu_torch.ops.cuda_megakernel import radiance_wave_mega
     from gi_raytracer_tpu_torch.render import Renderer
     from gi_raytracer_tpu_torch.render import photon_knn
+    from gi_raytracer_tpu_torch.render.integrator import dispatch_wave
     ro, rd, sx, sy = Renderer(scene, cam, cfg, WIDTH, HEIGHT).wave_inputs(0)
     lane = torch.arange(ro.shape[0], device=ro.device)
     calls = []
@@ -584,7 +584,8 @@ def k3_wave_queries(scene, cfg, cam, pm):
 
     photon_knn._estimate = record
     try:
-        radiance_wave_mega(scene, cfg, ro, rd, sx, sy, lane, 0, pm)
+        dispatch_wave(scene, cfg, ro, rd, sx, sy, 0, pm, lane_ids=lane,
+                      route="k1")
     finally:
         photon_knn._estimate = estimate
     require(len(calls) > 0, "no caustic estimate in the wave")
@@ -1240,10 +1241,10 @@ def main(argv) -> int:
 
     # what the Cornell path needs, which --cornell TREE takes from the tree
     # (and phase B, which --glass TREE takes from it)
+    from gi_raytracer_tpu_torch import routes
     from gi_raytracer_tpu_torch.config import RenderConfig
     from gi_raytracer_tpu_torch.ops import _cuda
-    from gi_raytracer_tpu_torch.ops.cuda_megakernel import (
-        mega_why_not, radiance_wave_mega)
+    from gi_raytracer_tpu_torch.ops.cuda_megakernel import radiance_wave_mega
     from gi_raytracer_tpu_torch.render import Camera, Renderer
     from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
     from gi_raytracer_tpu_torch.scene.cornell import (
@@ -1274,7 +1275,7 @@ def main(argv) -> int:
     cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
     scene = cornell_box(SceneBuilder, meshgen, full=True).build(device=dev)
     require(scene.n_tris == FULL_TRIS, scene.n_tris)
-    require(mega_why_not(scene, cfg) == [], mega_why_not(scene, cfg))
+    require(routes.wave(scene, cfg) == ("k1", []), routes.wave(scene, cfg))
 
     if argv and argv[0] == "--glass":
         glass_alone(cam)
@@ -1320,10 +1321,11 @@ def main(argv) -> int:
     from gi_raytracer_tpu_torch.ops import cuda_stream as cs
     from gi_raytracer_tpu_torch.ops.cuda_megakernel import mega_info
     from gi_raytracer_tpu_torch.ops.intersect import (
-        chunk_boxes, stream_boxes, trace_closest, trace_tables, uses_stream)
+        chunk_boxes, stream_boxes, trace_closest, trace_tables)
     from gi_raytracer_tpu_torch.render import photon as photon_mod
     from gi_raytracer_tpu_torch.render.geom import hemisphere_cos, normalize
-    from gi_raytracer_tpu_torch.render.integrator import radiance_wave
+    from gi_raytracer_tpu_torch.render.integrator import (dispatch_wave,
+                                                          radiance_wave)
     from gi_raytracer_tpu_torch.render.photon import (
         PhotonBatch, build_photon_map, sample_photons_backend, trace_photons)
     from gi_raytracer_tpu_torch.render.photon_knn import (
@@ -1485,9 +1487,10 @@ def main(argv) -> int:
         chunk_s = timed(lambda: photon_mod.trace_photons(
             scn, c.replace(photons=n)))[1]
         one = c.replace(photons=n, photon_retries=1)
-        require(photon_mod.round_kernel_why_not(
-            scn, one, None, Staged(c.seed, scn.device), False) == [
-                "emission uniforms from Staged, not ThreefryUniform"],
+        require(routes.photon_round(
+            scn, one, None, Staged(c.seed, scn.device), False) == (
+                "staged",
+                ["emission uniforms from Staged, not ThreefryUniform"]),
                 "Staged takes the staged round")
         fast = photon_mod.trace_photons(scn, one)
         staged, plain_s = timed(lambda: photon_mod.trace_photons(
@@ -1632,8 +1635,8 @@ def main(argv) -> int:
         kernel's lane queue refills ended paths and warps mix depths."""
         ro, rd, sx, sy, lane = wave
         R = ro.shape[0]
-        got, (kc, ks) = radiance_wave_mega(scn, cfg, ro, rd, sx, sy, lane, 0,
-                                           pmap)
+        got, (kc, ks) = dispatch_wave(scn, cfg, ro, rd, sx, sy, 0, pmap,
+                                      lane_ids=lane, route="k1")
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1666,7 +1669,8 @@ def main(argv) -> int:
         glass8k = cornell_box(SceneBuilder, meshgen, True,
                               K1_GLASS_SUBDIVS).build(device=dev)
         require(glass8k.n_tris == K1_GLASS_TRIS, glass8k.n_tris)
-        require(mega_why_not(glass8k, cfg) == [], mega_why_not(glass8k, cfg))
+        require(routes.wave(glass8k, cfg) == ("k1", []),
+                routes.wave(glass8k, cfg))
         for scn in (scene, glass8k):
             info = mega_info(scn)
             log(f"K1 resources, {scn.n_tris} triangles: {json.dumps(info)}")
@@ -1912,7 +1916,7 @@ def main(argv) -> int:
         _, t_tab = timed(lambda: (trace_tables(big), stream_boxes(big),
                                   chunk_boxes(big)))
         require(big.n_tris == terrain.terrain_tris(n), big.n_tris)
-        require(uses_stream(big), "the terrain goes to K4")
+        require(routes.trace(big)[0] == "k4", "the terrain goes to K4")
         log(f"terrain {big.n_tris} triangles: mesh {t_pop:.3f} s, scene "
             f"build with the SAH BVH {t_build:.3f} s, trace tables, "
             f"{stream_boxes(big).shape[1]} superchunk and "
@@ -2104,7 +2108,8 @@ def main(argv) -> int:
         glass, t_build = timed(lambda: cornell_box(
             SceneBuilder, meshgen, True, GLASS_SUBDIVS).build(device=dev))
         require(glass.n_tris == GLASS_TRIS, glass.n_tris)
-        require(uses_stream(glass) and mega_why_not(glass, glass_cfg),
+        require(routes.trace(glass)[0] == "k4"
+                and routes.wave(glass, glass_cfg)[0] == "staged",
                 "the glass box takes the staged wave on K4")
         log(f"glass box {glass.n_tris} triangles built in {t_build:.3f} s")
     with Phase("K4 glass photon round"):
@@ -2135,8 +2140,9 @@ def main(argv) -> int:
                          seed=SEED).build(device=dev)
         require((an.n_tris, an.n_spheres, an.n_cones) == (ANALYTIC_TRIS, 2, 1),
                 (an.n_tris, an.n_spheres, an.n_cones))
-        require(an.has_image_tex and not uses_stream(an)
-                and mega_why_not(an, c_cfg), "the staged wave on K2")
+        require(an.has_image_tex and routes.trace(an)[0] == "k2"
+                and routes.wave(an, c_cfg)[0] == "staged",
+                "the staged wave on K2")
 
     def analytic_path():
         batch, t_ph = timed(lambda: trace_photons(an, c_cfg))
@@ -2197,7 +2203,8 @@ def main(argv) -> int:
                           seed=SEED)
         fog = fb.build(device=dev)
         require(fog.n_tris == FULL_TRIS and fog.has_fog
-                and mega_why_not(fog, d_cfg) == ["fog"], "fog: no K1")
+                and routes.wave(fog, d_cfg) == ("staged", ["fog"]),
+                "fog: no K1")
         clear = cornell_box(SceneBuilder, meshgen, True).build(device=dev)
 
     def fog_path():

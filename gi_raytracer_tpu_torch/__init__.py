@@ -5,8 +5,11 @@ mirrors its module names so each counterpart is easy to find:
 
   scene/      host-side scene compiler (numpy) -> torch tensors
   sampling/   Halton QMC engine and the counter hash, bit-exact
-  ops/        intersection (plain torch + CUDA trace kernel) and the
-              bounce megakernel
+  ops/        intersection (plain torch + CUDA trace kernels), the packed
+              prim rows and the other kernels' wrappers; it imports
+              nothing from render/'s integrator or photon pass
+  routes.py   every choice of kernel (the trace, a wave, its set-up, a
+              photon round) with the reasons a kernel is refused
   render/     camera, shading, staged integrator + Renderer, photon pass,
               kNN caustic estimate (plain torch + CUDA kernel), height fog
   io/         PNG output (standard library) and render checkpoints
@@ -16,9 +19,10 @@ mirrors its module names so each counterpart is easy to find:
   convert.py  carries scenes, photon batches/maps and configs across from
               numpy arrays (used by the parity tests)
 
-Every CUDA kernel has a plain PyTorch version in the same module.  A
-wrapper takes the plain version only for CPU tensors; for a CUDA tensor it
-launches the kernel or raises.  This package never imports JAX.
+Every CUDA kernel has a plain PyTorch version.  K2, K3 and K4 keep theirs
+in their own module and take it for CPU tensors; the wrappers of K1, the
+photon round and the wave set-up launch their kernel or raise, and their
+callers hold the plain version.  This package never imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -34,7 +34,7 @@ class RenderConfig:
     knn_k: int = 32
     caustic_max_depth: int = 10
 
-    # atmosphere (not on the port's path yet)
+    # the fog march (render/atmosphere.py); fog_lane_chunk is not read
     raymarch_stepsize: float = 0.04
     raymarch_max_steps: int = 512
     fog_lane_chunk: int = 32768

@@ -22,8 +22,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .render.camera import Camera, primary_rays
-from .render.integrator import Renderer, radiance_wave
+from .render.camera import Camera
+from .render.integrator import Renderer
 
 
 class GradReport(NamedTuple):
@@ -168,21 +168,13 @@ def check_camera(ls, size=16) -> GradReport:
     """d(image)/d(camera position): sensor and primary-ray
     differentiability."""
     r, idx, scene = _setup(ls, size, 2)
-    cfg = r.cfg.replace(integrator="staged")
-    dt = r.dtype
-    idx_b = idx[r._perm_t]
-    xr = r.sampler.sample(0, idx_b, r._index_bits).to(dt)
-    yr = r.sampler.sample(1, idx_b, r._index_bits).to(dt)
-    sx_all, sy_all = r._bounce_samples(idx_b)
-    look = torch.as_tensor(ls.camera_look_at, dtype=dt, device=r.device)
+    look = torch.as_tensor(ls.camera_look_at, dtype=r.dtype, device=r.device)
 
     def loss(campos):
-        ro, rd = primary_rays(Camera(pos=campos, look_at=look), size, size,
-                              xr * r.enum.scale_x, yr * r.enum.scale_y)
-        c, _ = radiance_wave(scene, cfg, ro, rd, sx_all, sy_all, 0, None)
-        return torch.mean(c)
+        r.camera = Camera(pos=campos, look_at=look)
+        return torch.mean(r._wave(scene, None, idx, 0))
 
-    p0 = torch.as_tensor(ls.camera_pos, dtype=dt, device=r.device)
+    p0 = torch.as_tensor(ls.camera_pos, dtype=r.dtype, device=r.device)
     picks = [(0,), (1,), (2,)]
     ga, fd = _fd_check(loss, p0, picks, 1e-4)
     return GradReport("camera_pos", ga, fd, _rel(ga, fd))

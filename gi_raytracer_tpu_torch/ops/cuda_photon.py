@@ -7,9 +7,8 @@ chunk's live slots, tile for tile as the staged launch walks them), the
 shading and the first diffuse hit's store, merged in place into the
 chunk's arrays, whose stored count it adds to a device counter.  Its plain
 version is the staged round of ``render/photon.py``, which the caller
-takes wherever the kernel does not apply (``photon.round_kernel_why_not``),
-so this module has none of its own and raises on anything but CUDA
-tensors.
+takes wherever the kernel does not apply (``routes.photon_round``), so
+this module has none of its own and raises on anything but CUDA tensors.
 
 :func:`round_launcher` checks a chunk's inputs once and returns its
 launch; :func:`round_info` reports the kernel's resources on the card.
@@ -22,12 +21,11 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import routes
 from . import _cuda
 from . import cuda_intersect as ci
-from .cuda_megakernel import mega_tables
 from .intersect import chunk_boxes, trace_tables
-
-MAX_DEPTH = 16      # chain steps a round takes (GI_PHOTON_MAX_DEPTH)
+from .prim_rows import kernel_rows
 
 
 def round_launcher(scene, light, keys, pos, dirs, col, stored, n_stored,
@@ -45,7 +43,7 @@ def round_launcher(scene, light, keys, pos, dirs, col, stored, n_stored,
     (``HaltonSampler.arith_plan(3)``)."""
     feat, accept = trace_tables(scene)
     cbox = chunk_boxes(scene)
-    rows = mega_tables(scene)[0]    # the packed shade rows K1 reads
+    rows = kernel_rows(scene)
     n = pos.shape[0]
     _cuda.require_cuda("photon_round", feat, accept, cbox, rows, light, pos,
                        dirs, col, stored, n_stored)
@@ -61,9 +59,10 @@ def round_launcher(scene, light, keys, pos, dirs, col, stored, n_stored,
             raise ValueError(f"photon_round {what}: {t.dtype}, not {dt}")
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     rounds, depth = keys.shape[0], keys.shape[1] - 1
-    if keys.shape != (rounds, depth + 1, 2) or not 0 <= depth <= MAX_DEPTH:
+    if (keys.shape != (rounds, depth + 1, 2)
+            or not 0 <= depth <= routes.PHOTON_MAX_DEPTH):
         raise ValueError(f"photon_round: keys {keys.shape}, at most "
-                         f"{MAX_DEPTH} chain steps")
+                         f"{routes.PHOTON_MAX_DEPTH} chain steps")
     if feat.shape[0] // ci.CHUNK_ROWS > ci.MAX_GROUPS:
         raise ValueError(f"photon_round: {feat.shape[0]} rows exceed the "
                          f"walk's {ci.MAX_GROUPS} chunks")

@@ -1,7 +1,7 @@
 """The superchunk trace (K4): CUDA kernel wrapper + plain version.
 
 Counterpart of ``gi_raytracer_tpu.ops.pallas_intersect._stream_kernel``
-(launched by ``_stream_trace`` for scenes past ``VMEM_TRI_CAP``).  It
+(launched where ``routes.trace`` names K4).  It
 answers the query of the dense trace (``cuda_intersect``): per ray, the
 accepted triangle with the smallest approximate t below the ray's t limit,
 ties to the smallest prim id, or with ``any_hit`` whether one lies in

@@ -4,7 +4,7 @@ One launch draws every Halton dim of a render wave (dim 0 by bit reversal,
 dims 1 ... 1 + 2 ``depth`` by the per-digit loop of the arithmetic range)
 and its primary rays, bit-equal to ``Renderer.wave_inputs_plain``
 (``HaltonSampler.sample`` of each dim and ``camera.primary_rays``).  The
-caller takes it where ``integrator.wave_inputs_why_not`` is empty and the
+caller takes it where ``routes.wave_inputs`` names the kernel and the
 plain version everywhere else, so this module has no plain version of its
 own and raises on anything but CUDA tensors.
 
@@ -49,7 +49,7 @@ def wave_launcher(sampler, offsets, perm, depth: int, index_bits: int,
     indices are ``offsets[perm[p]] + wave_offset`` (mod 2**32) over the
     block-ordered positions ``p`` (every one of ``perm``, or the int64
     tensor ``pos``); ``cam`` is the frame's (14,) float32 camera constants
-    (``Renderer.frame_camera``).  ``offsets`` (the band's raster Halton
+    (``Renderer.frame_routes``).  ``offsets`` (the band's raster Halton
     offsets) and ``perm`` are int64."""
     if not 0 <= depth <= MAX_DEPTH:
         raise ValueError(f"wave_inputs: depth {depth} draws dims past base "

@@ -2,11 +2,11 @@
 spheres and cones layered over them in torch.
 
 Counterpart of ``gi_raytracer_tpu.ops.intersect`` on its Pallas route:
-scenes of at most ``VMEM_TRI_CAP`` triangles go through the dense trace
-(``cuda_intersect.prim_query``, K2), bigger ones through the superchunk
-trace (``cuda_stream.prim_query_stream``, K4); each is the CUDA kernel on
-the card and its plain version on the CPU.  The exact Moller-Trumbore
-(t, u, v) of the winner is recomputed here.  Spheres and cones are few, so
+a query goes through the dense trace (``cuda_intersect.prim_query``, K2)
+or the superchunk trace (``cuda_stream.prim_query_stream``, K4), as
+``routes.trace`` decides; each is the CUDA kernel on the card and its
+plain version on the CPU.  The exact Moller-Trumbore (t, u, v) of the
+winner is recomputed here.  Spheres and cones are few, so
 each query then tests them densely (``_sphere_pass``, ``_cone_pass``): a
 prim wins where its t is below the best so far and its stochastic-alpha
 draw, keyed on the global ray id and its prim id (T + i for sphere i,
@@ -22,17 +22,11 @@ from typing import NamedTuple
 
 import torch
 
-from .. import telemetry
+from .. import routes, telemetry
 from ..sampling.rng import hash_u01
 from ..scene.types import derived
 from . import cuda_intersect as ci
 from . import cuda_stream as cs
-
-# The JAX package's name for the scene size up to which the dense trace
-# runs: there its VMEM-resident table; here the size past which a scene's
-# queries go to the superchunk trace (K4) instead of K2's walk over single
-# 128-triangle chunks.
-VMEM_TRI_CAP = 16_384
 
 
 class Hit(NamedTuple):
@@ -235,11 +229,6 @@ def stream_boxes(scene):
                        scene, trace_tables(scene)[0].shape[0]))
 
 
-def uses_stream(scene) -> bool:
-    """Whether the scene's queries go to the superchunk trace (K4)."""
-    return scene.n_tris > VMEM_TRI_CAP
-
-
 def _query(scene, ro, rd, t_max, salt, eps, active, ray_id, any_hit, plain):
     R = ro.shape[0]
     dev = ro.device
@@ -256,7 +245,7 @@ def _query(scene, ro, rd, t_max, salt, eps, active, ray_id, any_hit, plain):
            else ray_id)
     args = (ro.detach(), rd.detach(), tl.detach(), act, rid, salt, eps,
             any_hit, scene.all_opaque)
-    if uses_stream(scene):
+    if routes.trace(scene)[0] == "k4":
         fn = cs.prim_query_stream_plain if plain else cs.prim_query_stream
         return fn(feat, accept, stream_boxes(scene), chunk_boxes(scene),
                   *args)

@@ -207,8 +207,8 @@ def train_step_sharded(mesh: Mesh, params: dict, scene_fn, cfg, ro, rd,
     p = {k: v.detach().clone().requires_grad_(True)
          for k, v in params.items()}
     scene, pm = scene_fn(p)
-    c, _ = radiance_wave(scene, cfg.replace(integrator="staged"), ro[sl],
-                         rd[sl], sx_all[:, sl], sy_all[:, sl], 0, pm,
+    c, _ = radiance_wave(scene, cfg, ro[sl], rd[sl], sx_all[:, sl],
+                         sy_all[:, sl], 0, pm,
                          lane_base=int(lane_base) + sl.start)
     part = torch.sum((c - target[sl]) ** 2) / target.numel()
     grads = torch.autograd.grad(part, list(p.values()))

@@ -5,29 +5,29 @@ Counterpart of ``gi_raytracer_tpu.render.integrator``:
 * ``radiance_wave`` is the staged wave: the bounce loop as a Python loop of
   torch stages (trace, shade, secondary ray, shadow rays, direct light,
   caustic estimate, Russian roulette).  It is the render path of scenes
-  the megakernel does not take (past ``MEGA_TRI_CAP`` triangles: every
-  trace there is K4), and the megakernel's plain version for the scenes it
-  does.
-* ``dispatch_wave`` sends eligible scenes to the megakernel
-  (``cuda_megakernel.radiance_wave_mega``) and the rest to the staged wave.
+  the megakernel does not take, and on CPU tensors the megakernel's plain
+  version.
+* ``dispatch_wave`` sends a wave down ``routes.wave``'s route: the
+  megakernel (``cuda_megakernel.radiance_wave_mega``, whose caustic query
+  records it folds through the kNN estimate) or the staged wave.
 * ``Renderer.render`` runs one wave per sample in a Python loop and folds
   each into the accumulation state (running mean, EMA variance, per-pixel
   sample counts).  Rays are traced in 16x16 pixel-block order; wave w,
   block-ordered position p has lane id w*N + p, so every stochastic
   stream matches the JAX renderer's.  Fixed-spp renders trace the full
   frame each wave; adaptive renders trace only the 16x16 blocks that still
-  hold an active pixel (``Renderer.block_wave``), all of them as one wave,
-  and count only the lanes they trace.  The JAX renderer groups those
-  blocks into fixed-size dispatches for its static shapes; the lane ids,
-  and so the image and the counters, do not depend on the grouping.
+  hold an active pixel, all of them as one wave (``Renderer.block_wave``
+  either way), and count only the lanes they trace.  The JAX renderer
+  groups those blocks into fixed-size dispatches for its static shapes;
+  the lane ids, and so the image and the counters, do not depend on the
+  grouping.
 * A wave's set-up (its Halton dims and primary rays,
   ``Renderer.wave_inputs``) is one launch of the wave-inputs kernel
-  (``ops.cuda_wave_inputs``) where ``wave_inputs_why_not`` is empty: on the card, float32, at most 16
-  bounces (every dim in Halton's arithmetic range) and no camera tensor
-  that autograd must see.  Everywhere else it is torch code
-  (``Renderer.wave_inputs_plain``), the kernel's plain version.  The
-  camera's constants are taken once a frame (``Renderer.start``).  Each
-  ``wave.inputs`` span names its ``route``: ``"kernel"`` or ``"torch"``.
+  (``ops.cuda_wave_inputs``) or its plain version, torch code
+  (``Renderer.wave_inputs_plain``).  A frame decides its routes once
+  (``Renderer.start``); each ``wave.inputs`` span names its ``route``,
+  ``"kernel"`` or ``"torch"``, and each ``wave.trace`` span its wave's,
+  ``"k1"`` or ``"staged"``.
 * In a fog scene every bounce marches the fog after the closest hit
   (``atmosphere.fog_override``) and every shadow ray through it
   (``atmosphere.fog_occludes``).
@@ -43,24 +43,26 @@ Counterpart of ``gi_raytracer_tpu.render.integrator``:
 
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import routes, telemetry
 from ..config import RenderConfig
 from ..ops import _cuda, cuda_wave_inputs
+from ..ops.cuda_megakernel import FAR, radiance_wave_mega
 from ..ops.intersect import trace_closest_rows, trace_any
+from ..ops.prim_rows import build_prim_rows
 from ..sampling.halton import HaltonSampler, HaltonEnum, MAX_QMC_DIMS
 from ..sampling import rng
 from ..sampling.rng import Purpose, hash_u01
 from ..scene.types import derived
+from . import photon
 from .atmosphere import fog_occludes, fog_override
 from .camera import Camera, primary_rays, ray_frame
 from .geom import normalize, random_unit_vec, PI
-from .shading import build_prim_rows, shade_from_rows, secondary_ray
+from .shading import shade_from_rows, secondary_ray
 
 
 class PathState(NamedTuple):
@@ -123,14 +125,9 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
 
     Every stochastic stream is keyed on (lane id, purpose, depth); lane ids
     are ``lane_ids`` or ``lane_base + arange(R)``.  ``plain=True`` runs the
-    plain trace and kNN versions on any device (comparison runs only)."""
-    from ..ops.cuda_megakernel import mega_eligible
-    from .photon import sample_photons_backend
-
-    if plain or (cfg.integrator in ("auto", "mega")
-                 and mega_eligible(scene, cfg)):
-        # the staged wave stands in for the megakernel only where the
-        # megakernel would run; past its triangle cap it is the path
+    plain trace and kNN versions on any device (comparison runs only,
+    counted as K1's plain version)."""
+    if plain:
         _cuda.plain_calls["megakernel"] += 1
     R = ro.shape[0]
     dev = ro.device
@@ -182,9 +179,9 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
         i_direct = _direct_light(scene, cfg, point, normal, rough, u_light,
                                  salt, active=valid, ray_id=lane, plain=plain)
         if photon_map is not None and depth <= cfg.caustic_max_depth:
-            caustic = sample_photons_backend(photon_map, point, out_dir,
-                                             cfg.knn_k, cfg.knn_backend,
-                                             plain=plain)
+            caustic = photon.sample_photons_backend(
+                photon_map, point, out_dir, cfg.knn_k, cfg.knn_backend,
+                plain=plain)
         else:
             caustic = torch.zeros_like(color)
 
@@ -212,68 +209,67 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
     return st.radiance, (st.n_closest, st.n_shadow)
 
 
-def wave_route(scene, cfg) -> str:
-    """The route ``dispatch_wave`` takes for ``scene``: ``"k1"``, the
-    megakernel (``integrator`` "auto" or "mega" and the scene eligible),
-    or ``"staged"``, the staged ``radiance_wave``."""
-    from ..ops.cuda_megakernel import mega_eligible
-    return ("k1" if cfg.integrator in ("auto", "mega")
-            and mega_eligible(scene, cfg) else "staged")
-
-
 def dispatch_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt=0,
                   photon_map=None, lane_base=0, lane_ids=None,
-                  prim_rows=None):
-    """Render-path wave down ``wave_route``'s route: the megakernel or the
-    staged ``radiance_wave``.  Returns (radiance (R,3), (n_closest,
+                  prim_rows=None, route=None):
+    """Render-path wave down ``route`` (``routes.wave``'s, decided anew when
+    None): the megakernel or the staged ``radiance_wave``.  On K1's route
+    a wave whose inputs carry a gradient is refused on either device (K1
+    is forward-only), and CPU tensors take the staged wave, K1's plain
+    version, on the same lanes.  Returns (radiance (R,3), (n_closest,
     n_shadow))."""
-    from ..ops.cuda_megakernel import mega_why_not, radiance_wave_mega
+    route = route or routes.wave(scene, cfg)[0]
+    if route == "staged" and cfg.integrator == "mega":
+        raise ValueError("integrator='mega' requested but the scene is not "
+                         "megakernel-eligible: "
+                         + "; ".join(routes.wave(scene, cfg)[1]))
+    why = routes.k1_refusal(scene, ro, rd, photon_map) if route == "k1" else []
+    if why:
+        raise ValueError("the megakernel is forward-only: " + "; ".join(why)
+                         + "; gradient paths call the staged radiance_wave "
+                         "(Renderer._wave)")
+    if route == "staged" or ro.device.type == "cpu":
+        if route == "k1":       # the staged wave as K1's plain version
+            _cuda.plain_calls["megakernel"] += 1
+        return radiance_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt,
+                             photon_map, lane_base=lane_base,
+                             lane_ids=lane_ids, prim_rows=prim_rows)
+    lane = (lane_ids if lane_ids is not None
+            else (int(lane_base) + torch.arange(ro.shape[0], device=ro.device))
+            & 0xFFFFFFFF)
+    rec = (None if photon_map is None else torch.empty(
+        (ro.shape[0], int(cfg.max_depth), 9), dtype=torch.float32,
+        device=ro.device))
+    radiance, counts = radiance_wave_mega(scene, cfg, ro, rd, sx_all, sy_all,
+                                          lane, wave_salt, rec)
+    if rec is not None:
+        radiance = radiance + _caustic_fold(photon_map, cfg, rec)
+    return radiance.to(ro.dtype), counts
 
-    use_mega = wave_route(scene, cfg) == "k1"
-    if not use_mega and cfg.integrator == "mega":
-        raise ValueError("integrator='mega' requested but the scene is "
-                         "not megakernel-eligible: "
-                         + "; ".join(mega_why_not(scene, cfg)))
-    if use_mega:
-        R = ro.shape[0]
-        lane = (lane_ids if lane_ids is not None
-                else (int(lane_base) + torch.arange(R, device=ro.device))
-                & 0xFFFFFFFF)
-        return radiance_wave_mega(scene, cfg, ro, rd, sx_all, sy_all, lane,
-                                  wave_salt, photon_map)
-    return radiance_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt,
-                         photon_map, lane_base=lane_base, lane_ids=lane_ids,
-                         prim_rows=prim_rows)
+
+def _caustic_fold(photon_map, cfg, rec):
+    """K1's (R, 3) caustic term from its (R, D, 9) query records (point,
+    direction, weight a bounce): the kNN estimate (looked up on ``photon``
+    at each call) at the live records, weighted and summed over bounces."""
+    R, D = rec.shape[:2]
+    pts = rec[:, :, 0:3].reshape(R * D, 3)
+    dirs = rec[:, :, 3:6].reshape(R * D, 3)
+    wts = rec[:, :, 6:9].reshape(R * D, 3)
+    with telemetry.sync("mega.live"):
+        live = torch.nonzero((pts[:, 0] < FAR)
+                             & (wts.max(dim=-1).values > 0)).squeeze(1)
+    est = torch.zeros_like(pts)
+    if live.numel():
+        est[live] = photon.sample_photons_backend(
+            photon_map, pts[live], dirs[live], cfg.knn_k, cfg.knn_backend)
+    return (wts * est).reshape(R, D, 3).sum(1)
 
 
-def _needs_grad(v) -> bool:
-    if torch.is_tensor(v):
-        return v.requires_grad
-    return isinstance(v, (tuple, list)) and any(map(_needs_grad, v))
-
-
-def wave_inputs_why_not(renderer) -> list:
-    """The reasons ``renderer``'s wave set-up cannot run as the wave-inputs
-    kernel (empty: it does)."""
-    why = []
-    cam, cfg = renderer.camera, renderer.cfg
-    if renderer.device.type != "cuda":
-        why.append(f"tensors on {renderer.device.type}, not the card")
-    if cfg.dtype != "float32":
-        why.append(f"dtype {cfg.dtype}")
-    if cfg.max_depth > cuda_wave_inputs.MAX_DEPTH:
-        why.append(f"max_depth {cfg.max_depth} > "
-                   f"{cuda_wave_inputs.MAX_DEPTH}: dims past Halton's "
-                   f"arithmetic range")
-    if type(renderer.sampler) is not HaltonSampler:
-        why.append(f"sampler {type(renderer.sampler).__name__}, not "
-                   f"HaltonSampler")
-    if torch.is_grad_enabled() and any(
-            _needs_grad(getattr(cam, f.name))
-            for f in dataclasses.fields(cam)):
-        why.append("the camera carries a gradient: autograd must see the "
-                   "operations")
-    return why
+class FrameRoutes(NamedTuple):
+    """What a frame decides once (``Renderer.start``)."""
+    wave: str                   # routes.wave's route
+    inputs: str                 # routes.wave_inputs's
+    cam: torch.Tensor | None    # the camera's constants on the kernel route
 
 
 class Renderer:
@@ -331,10 +327,9 @@ class Renderer:
                                and Hb % B == 0 and width % B == 0)
         # blocks traced by each wave of the last render (block-adaptive)
         self.wave_blocks: list = []
-        # the frame's camera constants on the kernel route (``start``), and
-        # the wave-inputs kernel's launch with the sampler and depth it
-        # was made for
-        self._frame_cam = None
+        # the frame's routes (``start``), and the wave-inputs kernel's
+        # launch with the sampler and depth it was made for
+        self._frame = None
         self._inputs_launch = None
 
     @property
@@ -367,28 +362,34 @@ class Renderer:
                         torch.float64, idx_flat.device).to(self.dtype))
         return torch.stack(sx), torch.stack(sy)
 
-    def inputs_route(self) -> str:
-        """The route of ``wave_inputs``: ``"kernel"``, the wave-inputs
-        kernel (``wave_inputs_why_not`` empty), or ``"torch"``,
-        ``wave_inputs_plain``."""
-        return "torch" if wave_inputs_why_not(self) else "kernel"
+    def frame_routes(self) -> FrameRoutes:
+        """The routes of a frame's waves, decided now, and on the kernel
+        route the (14,) camera constants of its rays: position, up, right,
+        screen centre, half-width and half-height, by ``primary_rays``' own
+        arithmetic (``camera.ray_frame``)."""
+        inputs = routes.wave_inputs(self.cfg, self.device, self.sampler,
+                                    self.camera)[0]
+        cam = None
+        if inputs == "kernel":
+            *c, shw, shh = ray_frame(self.camera, self.width, self.height,
+                                     self.dtype, self.device)
+            cam = torch.cat(c + [shw.reshape(1), shh.reshape(1)])
+        return FrameRoutes(routes.wave(self.scene, self.cfg)[0], inputs, cam)
 
-    def frame_camera(self):
-        """The (14,) camera constants of a frame's rays on the kernel route:
-        position, up, right, screen centre, half-width and half-height, by
-        ``primary_rays``' own arithmetic (``camera.ray_frame``)."""
-        pos, up, right, center, shw, shh = ray_frame(
-            self.camera, self.width, self.height, self.dtype, self.device)
-        return torch.cat([pos, up, right, center, shw.reshape(1),
-                          shh.reshape(1)])
+    def halton_index(self, wave: int, pos=None):
+        """The Halton indices of wave ``wave``'s lanes in block order, or at
+        the block-ordered positions ``pos``."""
+        idx = ((self._offsets_t + wave * self.enum.increment)
+               & 0xFFFFFFFF)[self._perm_t]
+        return idx if pos is None else idx[pos]
 
-    def wave_inputs(self, wave: int, pos=None, cam=None):
+    def wave_inputs(self, wave: int, pos=None, frame=None):
         """Block-ordered (ro, rd, sx_all, sy_all) of wave ``wave``: the full
-        frame, or the block-ordered positions ``pos``; down
-        ``inputs_route``'s route.  ``cam``: the frame's ``frame_camera``
-        (taken anew when None)."""
-        if self.inputs_route() == "torch":
-            return self.wave_inputs_plain(wave, pos)
+        band, or the block-ordered positions ``pos``; down ``frame``'s
+        set-up route (``frame_routes``, decided anew when None)."""
+        frame = self.frame_routes() if frame is None else frame
+        if frame.inputs == "torch":
+            return self.wave_inputs_plain(self.halton_index(wave, pos))
         depth = self.cfg.max_depth
         kept = self._inputs_launch
         if kept is None or kept[0] != (self.sampler, depth):
@@ -397,16 +398,12 @@ class Renderer:
                 self._index_bits, self.enum.scale_x, self.enum.scale_y,
                 self.width, self.height))
             self._inputs_launch = kept
-        return kept[1](wave * self.enum.increment, pos,
-                       self.frame_camera() if cam is None else cam)
+        return kept[1](wave * self.enum.increment, pos, frame.cam)
 
-    def wave_inputs_plain(self, wave: int, pos=None):
-        """``wave_inputs`` as torch code on any device: the wave-inputs
-        kernel's plain version, and the route of everything it refuses."""
-        idx = ((self._offsets_t + wave * self.enum.increment)
-               & 0xFFFFFFFF)[self._perm_t]
-        if pos is not None:
-            idx = idx[pos]
+    def wave_inputs_plain(self, idx):
+        """(ro, rd, sx_all, sy_all) of the lanes of Halton indices ``idx``
+        in torch on any device: the wave-inputs kernel's plain version and
+        the gradient entry's set-up."""
         xr = self.sampler.sample(0, idx, self._index_bits).to(self.dtype)
         yr = self.sampler.sample(1, idx, self._index_bits).to(self.dtype)
         ro, rd = primary_rays(self.camera, self.width, self.height,
@@ -424,32 +421,10 @@ class Renderer:
         ``scene`` itself, never from the renderer's own table."""
         N = self.width * self.height
         idx = torch.as_tensor(idx_flat, device=self.device)[self._perm_t]
-        xr = self.sampler.sample(0, idx, self._index_bits).to(self.dtype)
-        yr = self.sampler.sample(1, idx, self._index_bits).to(self.dtype)
-        ro, rd = primary_rays(self.camera, self.width, self.height,
-                              xr * self.enum.scale_x, yr * self.enum.scale_y)
-        sx_all, sy_all = self._bounce_samples(idx)
-        out, _ = radiance_wave(scene, self.cfg.replace(integrator="staged"),
-                               ro, rd, sx_all, sy_all, 0, photon_map,
-                               lane_base=int(wave_i) * N,
+        out, _ = radiance_wave(scene, self.cfg, *self.wave_inputs_plain(idx),
+                               0, photon_map, lane_base=int(wave_i) * N,
                                prim_rows=build_prim_rows(scene))
         return out[self._inv_perm_t]
-
-    def wave_radiance(self, wave: int, cam=None):
-        """One wave of the band -> ((Hb, W, 3) raster radiance, ray
-        count); ``cam`` as ``wave_inputs`` takes it."""
-        N = self.width * self.height
-        with telemetry.span("wave.inputs", route=self.inputs_route()):
-            ro, rd, sx_all, sy_all = self.wave_inputs(wave, cam=cam)
-        with telemetry.span("wave.trace",
-                            route=wave_route(self.scene, self.cfg)):
-            out, (n_c, n_s) = dispatch_wave(
-                self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
-                self.photon_map, lane_base=wave * N + self._lane0,
-                prim_rows=self.prim_rows())
-            c = out[self._inv_perm_t].reshape(self.band_height, self.width,
-                                              3)
-        return c, n_c + n_s
 
     def active_blocks(self, active):
         """Block-major indices (in the band) of the 16x16 blocks of
@@ -459,33 +434,40 @@ class Renderer:
         with telemetry.sync("wave.blocks"):
             return torch.nonzero(act.reshape(-1)).squeeze(1)
 
-    def block_wave(self, wave: int, blocks, cam=None):
-        """One wave over the band's 16x16 blocks ``blocks`` (block-major
-        indices) as one dispatch.  Block b's lane j has lane id wave*N +
-        lane0 + b*256 + j, as in the full frame.  Returns ((Hb, W, 3)
-        raster radiance, zero outside those blocks; the ray count of the
-        traced lanes); ``cam`` as ``wave_inputs`` takes it."""
+    def block_wave(self, wave: int, blocks=None, frame=None):
+        """One wave of the band -> ((Hb, W, 3) raster radiance, ray count):
+        every lane, or (``blocks``, block-major indices) the lanes of those
+        16x16 blocks as one dispatch, the image zero outside them.  Block
+        b's lane j has lane id wave*N + lane0 + b*256 + j, as in the full
+        frame.  ``frame``: the frame's routes (``frame_routes``, decided
+        anew when None)."""
+        frame = self.frame_routes() if frame is None else frame
         H, W = self.band_height, self.width
-        Nb = H * W
-        with telemetry.span("wave.inputs", route=self.inputs_route()):
-            pos = (blocks[:, None] * 256
-                   + torch.arange(256, device=self.device)[None, :]
-                   ).reshape(-1)
-            c = torch.zeros((Nb, 3), dtype=self.dtype, device=self.device)
-            if pos.numel() == 0:        # a quiet band traces nothing
-                return (c.reshape(H, W, 3),
-                        torch.zeros((), dtype=torch.int64,
-                                    device=self.device))
-            ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos, cam)
-        with telemetry.span("wave.trace",
-                            route=wave_route(self.scene, self.cfg)):
+        base = wave * W * self.height + self._lane0
+        pos = None
+        with telemetry.span("wave.inputs", route=frame.inputs):
+            if blocks is not None:
+                pos = (blocks[:, None] * 256
+                       + torch.arange(256, device=self.device)[None, :]
+                       ).reshape(-1)
+                c = torch.zeros((H * W, 3), dtype=self.dtype,
+                                device=self.device)
+                if pos.numel() == 0:        # a quiet band traces nothing
+                    return (c.reshape(H, W, 3),
+                            torch.zeros((), dtype=torch.int64,
+                                        device=self.device))
+            ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos, frame)
+        with telemetry.span("wave.trace", route=frame.wave):
+            lanes = ({"lane_base": base} if pos is None
+                     else {"lane_ids": (base + pos) & 0xFFFFFFFF})
             out, (n_c, n_s) = dispatch_wave(
                 self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
-                self.photon_map, lane_ids=(wave * self.width * self.height
-                                           + self._lane0 + pos) & 0xFFFFFFFF,
-                prim_rows=self.prim_rows())
-            c[pos] = out.to(c.dtype)
-            return c[self._inv_perm_t].reshape(H, W, 3), n_c + n_s
+                self.photon_map, prim_rows=self.prim_rows(),
+                route=frame.wave, **lanes)
+            if pos is not None:
+                c[pos] = out.to(c.dtype)
+                out = c
+            return out[self._inv_perm_t].reshape(H, W, 3), n_c + n_s
 
     def state0(self):
         """Fresh accumulation state (running mean starts at 0.5)."""
@@ -543,8 +525,9 @@ class Renderer:
     def start(self, state=None):
         """The state a render starts from (``state0`` or ``state``, with an
         int64 ray counter: an older checkpoint's float32 one is cast, a
-        missing one starts at 0), and an empty ``wave_blocks`` record; on
-        the kernel route it takes the frame's camera constants."""
+        missing one starts at 0), and an empty ``wave_blocks`` record; it
+        decides the frame's routes (``frame_routes``), which ``step``
+        reads."""
         st = state if state is not None else self.state0()
         rays = st.get("rays")
         if rays is None:
@@ -552,26 +535,27 @@ class Renderer:
         elif rays.dtype != torch.int64:
             rays = rays.to(torch.int64)
         self.wave_blocks = []
-        self._frame_cam = (self.frame_camera()
-                           if self.inputs_route() == "kernel" else None)
+        self._frame = self.frame_routes()
         return dict(st, rays=rays)
 
     def step(self, st, s: int, reduce_rays=None):
         """Wave ``s`` of a render: trace the band (or its active blocks)
         and fold it into the state.  ``reduce_rays(n)`` turns the wave's
         ray count into the one added to the counter (the ranks' sum, in a
-        sharded render)."""
+        sharded render); the routes are ``start``'s, or decided anew
+        before it."""
+        frame = self.frame_routes() if self._frame is None else self._frame
         with telemetry.span("wave", wave=s) as sp:
+            blocks = None
             if self.block_adaptive:
-                with telemetry.span("wave.inputs",
-                                    route=self.inputs_route()):
+                with telemetry.span("wave.inputs", route=frame.inputs):
                     blocks = self.active_blocks(st["active"])
-                c, rays = self.block_wave(s, blocks, self._frame_cam)
+            c, rays = self.block_wave(s, blocks, frame)
+            if blocks is not None:
                 n_blocks = blocks.numel()
                 self.wave_blocks.append(n_blocks)
                 lanes = 256 * n_blocks
             else:
-                c, rays = self.wave_radiance(s, self._frame_cam)
                 n_blocks = -(-self.band_height // 16) * -(-self.width // 16)
                 lanes = self.band_height * self.width
             if sp is not None:

@@ -16,21 +16,20 @@ estimate (counterpart of ``gi_raytracer_tpu.render.photon``).
   ``sample_photons`` is the JAX package's capped per-point estimator,
   which ``knn_backend="jnp"`` names (``sample_photons_backend``).
 
-A retry round runs one of two ways, chosen per pass from what the code
-observes (``round_kernel_why_not``): on the card, for a float32
-triangle-only scene within K2's rows, without image textures, drawn from
-the default sources and with no gradient, as one launch of the walk
-kernel's photon-round policy (``ops.cuda_photon.round_launcher``),
+A retry round runs one of two ways, chosen per pass by
+``routes.photon_round``: where the kernel takes the pass, as one launch of
+the walk kernel's photon-round policy (``ops.cuda_photon.round_launcher``),
 which updates the chunk in place; everywhere else as the staged round
 (``_emit_attempts``): torch operations around six K2 trace calls, the plain
 version the kernel is held to.  Each ``photons.round`` span names its
 ``route``: ``"k2"`` or ``"staged"``.
 
 Emission draws its direction and BSDF uniforms from a ``uniform(li, chunk,
-round, depth, shape, dtype)`` source.  The default, ``ThreefryUniform``,
-draws the JAX package's threefry streams along its key path, so the port's
-photon batch equals the JAX package's slot for slot; the tests may pass
-another source (one that replays JAX's own draws).
+round, depth, shape, dtype)`` source.  The default,
+``sampling.rng.ThreefryUniform``, draws the JAX package's threefry
+streams along its key path, so the port's photon batch equals the JAX
+package's slot for slot; the tests may pass another source (one that
+replays JAX's own draws).
 
 ``trace_photons_sharded`` splits the slots over the ranks of a process
 group: rank r emits slots [r*per, (r+1)*per) as chunk r, and the batches
@@ -46,12 +45,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import routes, telemetry
 from ..config import RenderConfig
 from ..ops import cuda_photon
-from ..ops.intersect import VMEM_TRI_CAP, trace_closest
-from ..sampling import rng
+from ..ops.intersect import trace_closest
 from ..sampling.halton import HaltonSampler
+from ..sampling.rng import ThreefryUniform
 from .geom import normalize, random_unit_vec, sphere_cap_cos
 from .photon_knn import sample_photons_capped as sample_photons
 from .photon_knn import sample_photons_plain, sample_photons_tiled
@@ -91,77 +90,6 @@ class PhotonBatch(NamedTuple):
     dir: torch.Tensor
     col: torch.Tensor
     stored: torch.Tensor
-
-
-class ThreefryUniform:
-    """Default emission uniforms: the JAX emission's threefry key path
-    (``fold_in(key, chunk)``, then ``fold_in(., round)``; the direction
-    from ``stream(., PHOTON_EMIT_X, li)``, a chain step's BSDF uniforms
-    from ``fold_in(stream(., PHOTON_ALPHA, li), depth)``), drawn on
-    ``device``.  A draw depends on its key alone, never on call order."""
-
-    def __init__(self, seed: int, device):
-        self.key = rng.PRNGKey(seed)
-        self.device = torch.device(device)
-
-    def key_of(self, li, chunk, rnd, depth) -> tuple:
-        """The key of a draw (depth -1: the emission direction)."""
-        kr = rng.fold_in(rng.fold_in(self.key, chunk), rnd)
-        if depth < 0:
-            return rng.stream(kr, rng.Purpose.PHOTON_EMIT_X, li)
-        return rng.fold_in(rng.stream(kr, rng.Purpose.PHOTON_ALPHA, li),
-                           depth)
-
-    def __call__(self, li, chunk, rnd, depth, shape, dtype=torch.float32):
-        return rng.uniform(self.key_of(li, chunk, rnd, depth), shape, dtype,
-                           self.device)
-
-    def round_keys(self, li, chunk, rounds: int, depth: int) -> np.ndarray:
-        """(rounds, 1 + depth, 2) uint32: ``key_of(li, chunk, r, d)`` at
-        [r, d + 1] for d from -1 to depth - 1, the keys the round kernel
-        draws with, for every round of a chunk at once (the threefry blocks
-        on numpy arrays of the rounds)."""
-        def fold(key, data):
-            return rng.threefry2x32(key[0], key[1], 0, data & rng.M32)
-
-        kc = rng.fold_in(self.key, chunk)
-        kr = fold(kc, np.arange(rounds, dtype=np.int64))
-        emit = fold(fold(kr, rng.Purpose.PHOTON_EMIT_X), li)
-        alpha = fold(fold(kr, rng.Purpose.PHOTON_ALPHA), li)
-        keys = [emit] + [fold(alpha, d) for d in range(depth)]
-        return np.stack([np.stack(k, -1) for k in keys], 1).astype(np.uint32)
-
-
-def round_kernel_why_not(scene, cfg: RenderConfig, sampler, uniform,
-                         differentiable: bool) -> list:
-    """The reasons a photon pass's rounds cannot run as the round kernel
-    (empty: they do); ``sampler``/``uniform`` None stand for the
-    defaults."""
-    why = []
-    if scene.device.type != "cuda":
-        why.append(f"tensors on {scene.device.type}, not the card")
-    if scene.n_spheres or scene.n_cones:
-        why.append(f"analytic prims ({scene.n_spheres} spheres, "
-                   f"{scene.n_cones} cones)")
-    if scene.has_image_tex:
-        why.append("image textures")
-    if not 0 < scene.n_tris <= VMEM_TRI_CAP:
-        why.append(f"{scene.n_tris} triangles, not in K2's (0, "
-                   f"{VMEM_TRI_CAP}]")
-    dts = {scene.lights.pos.dtype, scene.tris.v0.dtype}
-    if cfg.dtype != "float32" or dts != {torch.float32}:
-        why.append(f"dtype {cfg.dtype} ({sorted(map(str, dts))})")
-    if differentiable:
-        why.append("differentiable: autograd must see the operations")
-    if uniform is not None and type(uniform) is not ThreefryUniform:
-        why.append(f"emission uniforms from {type(uniform).__name__}, not "
-                   f"ThreefryUniform")
-    if sampler is not None and type(sampler) is not HaltonSampler:
-        why.append(f"sampler {type(sampler).__name__}, not HaltonSampler")
-    if cfg.photon_depth > cuda_photon.MAX_DEPTH:
-        why.append(f"photon_depth {cfg.photon_depth} > "
-                   f"{cuda_photon.MAX_DEPTH}")
-    return why
 
 
 def _round_salt(li: int, rnd: int) -> int:
@@ -304,21 +232,6 @@ def _light_row(scene, li: int, total_count: int) -> torch.Tensor:
                       (0.5 * langle / total_count) * lt.col[li]]).contiguous()
 
 
-def _lights(scene, cfg, sampler, uniform, differentiable, count):
-    """Each light's round-kernel constants (``_light_row``), or Nones
-    where the rounds stay staged (``round_kernel_why_not``)."""
-    if round_kernel_why_not(scene, cfg, sampler, uniform, differentiable):
-        return [None] * scene.lights.count
-    return [_light_row(scene, li, count) for li in range(scene.lights.count)]
-
-
-def _no_photons(scene) -> PhotonBatch:
-    """The batch of a scene without lights: one empty slot."""
-    z = torch.zeros((1, 3), dtype=scene.lights.pos.dtype, device=scene.device)
-    return PhotonBatch(z, z, z, torch.zeros(1, dtype=torch.bool,
-                                            device=scene.device))
-
-
 def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
                   uniform=None, differentiable: bool = False) -> PhotonBatch:
     """Emit ``count`` (default ``cfg.photons``) photon slots per light in
@@ -338,22 +251,43 @@ def trace_photons(scene, cfg: RenderConfig, sampler=None, count=None,
                               differentiable)
 
 
-def _trace_photons(scene, cfg, sampler, count, uniform, differentiable):
+def _trace_photons(scene, cfg, sampler, count, uniform, differentiable,
+                   mesh=None):
+    """The pass in chunks of ``cfg.ray_chunk`` slots, or with ``mesh`` this
+    rank's chunk of count / ranks slots, all-gathered; each light's rounds
+    on ``routes.photon_round``'s route, given its round-kernel constants
+    (``_light_row``) on the kernel's."""
     sampler = sampler or HaltonSampler()
     count = count or cfg.photons
     uniform = uniform or ThreefryUniform(cfg.seed, scene.device)
     L = scene.lights.count
-    if L == 0:
-        return _no_photons(scene)
-    lights = _lights(scene, cfg, sampler, uniform, differentiable, count)
-    per_chunk = min(max(cfg.ray_chunk, 1), count)
+    if L == 0:          # one empty slot
+        z = torch.zeros((1, 3), dtype=scene.lights.pos.dtype,
+                        device=scene.device)
+        return PhotonBatch(z, z, z, torch.zeros(1, dtype=torch.bool,
+                                                device=scene.device))
+    route = routes.photon_round(scene, cfg, sampler, uniform,
+                                differentiable)[0]
+    lights = [_light_row(scene, li, count) if route == "k2" else None
+              for li in range(L)]
+    if mesh is None:
+        per = min(max(cfg.ray_chunk, 1), count)
+        starts = range(0, count, per)
+    elif count % mesh.size:
+        raise ValueError(f"photon count {count} not divisible by "
+                         f"{mesh.size}")
+    else:
+        from ..parallel.mesh import all_gather
+        per = count // mesh.size
+        starts = [mesh.rank * per]
     parts = []
     for li in range(L):
-        for start in range(0, count, per_chunk):
-            n = min(per_chunk, count - start)
-            parts.append(_emit_chunk(scene, cfg, sampler, uniform,
-                                     start // per_chunk, start, li, n, count,
-                                     differentiable, lights[li]))
+        for start in starts:
+            b = _emit_chunk(scene, cfg, sampler, uniform, start // per, start,
+                            li, min(per, count - start), count,
+                            differentiable, lights[li])
+            parts.append(b if mesh is None else PhotonBatch(
+                *(all_gather(mesh, f) for f in b)))
     return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
                          for f in PhotonBatch._fields))
 
@@ -366,26 +300,7 @@ def trace_photons_sharded(scene, cfg: RenderConfig, mesh, sampler=None,
     each light as chunk r (per = count / ranks), and the ranks' batches
     are all-gathered, so every rank returns the batch ``trace_photons``
     gives with ``cfg.ray_chunk = per``."""
-    from ..parallel.mesh import all_gather
-
-    sampler = sampler or HaltonSampler()
-    count = count or cfg.photons
-    uniform = uniform or ThreefryUniform(cfg.seed, scene.device)
-    L = scene.lights.count
-    if L == 0:
-        return _no_photons(scene)
-    lights = _lights(scene, cfg, sampler, uniform, False, count)
-    if count % mesh.size:
-        raise ValueError(f"photon count {count} not divisible by "
-                         f"{mesh.size}")
-    per = count // mesh.size
-    parts = []
-    for li in range(L):
-        b = _emit_chunk(scene, cfg, sampler, uniform, mesh.rank,
-                        mesh.rank * per, li, per, count, light=lights[li])
-        parts.append(PhotonBatch(*(all_gather(mesh, f) for f in b)))
-    return PhotonBatch(*(torch.cat([getattr(p, f) for p in parts])
-                         for f in PhotonBatch._fields))
+    return _trace_photons(scene, cfg, sampler, count, uniform, False, mesh)
 
 
 @torch.no_grad()

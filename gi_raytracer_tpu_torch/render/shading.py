@@ -1,14 +1,10 @@
-"""Surface shading: packed prim rows, hit attributes, BSDF direction select.
+"""Surface shading: hit attributes from packed prim rows, BSDF direction
+select.
 
 Counterpart of ``gi_raytracer_tpu.render.shading``: triangles, analytic
-spheres and cones; constant, checker and image textures.  The 64-column
-``PR_*`` row layout is the JAX package's, column for column, so the
-megakernel reads the same rows on both sides.  Sphere and cone rows reuse
-the geometry columns: a sphere's centre and radius, a cone's base centre,
-radius, height and world->local rotation.  An image texel is fetched from
-the flat atlas with the V flip and tiling of the reference; the packed
-descriptor carries the atlas offset as two exact float halves (hi * 4096 +
-lo), since one float32 column loses texels past 2^24.
+spheres and cones; constant, checker and image textures.  The rows are
+``ops.prim_rows``'s.  An image texel is fetched from the flat atlas with
+the V flip and tiling of the reference.
 """
 
 from __future__ import annotations
@@ -18,85 +14,11 @@ from typing import NamedTuple
 import torch
 
 from ..ops.intersect import cone_attrs, cone_frame_attrs
+from ..ops.prim_rows import (PR_FACEN, PR_HASVN, PR_IOR, PR_N0, PR_N1, PR_N2,
+                             PR_OPAC, PR_ROUGH, PR_TEXD, PR_TEXE, PR_UV0,
+                             PR_UV1, PR_UV2, PR_V0, PR_W2L, TEXD_W)
 from ..scene.types import Scene, Textures, TEX_CHECKER, TEX_IMAGE
 from .geom import dot, reflect, refract_tir, hemisphere_cos, sample_phong
-
-# column layout (shading.PR_* in the JAX package)
-PR_V0 = 0        # tri v0           | sphere/cone pos
-PR_E1 = 3        # tri e1           | sphere rad (col 3) | cone rad 3, h 4
-PR_E2 = 6
-PR_W2L = 5       # cone world->local rotation, row-major (cols 5:14)
-PR_N0, PR_N1, PR_N2 = 9, 12, 15
-PR_UV0, PR_UV1, PR_UV2 = 18, 20, 22
-PR_FACEN = 24
-PR_HASVN = 27
-PR_ROUGH, PR_OPAC, PR_IOR = 28, 29, 30
-PR_TEXD = 31     # diffuse texture descriptor (14 cols)
-PR_TEXE = 45     # emissive texture descriptor (14 cols)
-PR_W = 64
-TEXD_W = 14
-# descriptor: kind, off_hi, off_lo, width, height, has_alpha, tile_u,
-#             tile_v, c0 c1 c2, d0 d1 d2
-
-
-def _tex_descriptor(tx: Textures, tid, dt):
-    """(N, 14) descriptor rows for texture ids ``tid``."""
-    tid = tid.long()
-    return torch.cat([
-        tx.kind[tid, None].to(dt),
-        torch.div(tx.offset[tid], 4096, rounding_mode="floor")[:, None].to(dt),
-        torch.remainder(tx.offset[tid], 4096)[:, None].to(dt),
-        tx.width[tid, None].to(dt),
-        tx.height[tid, None].to(dt),
-        tx.has_alpha[tid, None].to(dt),
-        tx.tiles[tid].to(dt),
-        tx.color[tid].to(dt),
-        tx.color2[tid].to(dt),
-    ], dim=1)
-
-
-def build_prim_rows(scene: Scene) -> torch.Tensor:
-    """(T + S + C, PR_W) packed shade rows for every primitive: triangles,
-    then spheres, then cones."""
-    m = scene.materials
-    dt = scene.tris.v0.dtype if scene.n_tris else m.roughness.dtype
-    dev = m.roughness.device
-    parts = []
-
-    def mat_cols(mat_id):
-        mid = mat_id.long()
-        return [m.roughness[mid, None].to(dt), m.opacity[mid, None].to(dt),
-                m.ior[mid, None].to(dt),
-                _tex_descriptor(scene.textures, m.diffuse_tex[mid], dt),
-                _tex_descriptor(scene.textures, m.emissive_tex[mid], dt)]
-
-    if scene.n_tris:
-        tr = scene.tris
-        has_vn = ((torch.sum(tr.n0 * tr.n0, -1) > 0)
-                  & (torch.sum(tr.n1 * tr.n1, -1) > 0)
-                  & (torch.sum(tr.n2 * tr.n2, -1) > 0))
-        parts.append(torch.cat([
-            tr.v0, tr.e1, tr.e2, tr.n0, tr.n1, tr.n2, tr.uv0, tr.uv1, tr.uv2,
-            tr.face_n, has_vn[:, None].to(dt)] + mat_cols(tr.mat_id), dim=1))
-    if scene.n_spheres:
-        sp = scene.spheres
-        parts.append(torch.cat([
-            sp.pos.to(dt), sp.rad[:, None].to(dt),
-            torch.zeros((sp.count, 24), dtype=dt, device=dev)]
-            + mat_cols(sp.mat_id), dim=1))
-    if scene.n_cones:
-        cn = scene.cones
-        C = cn.count
-        parts.append(torch.cat([
-            cn.pos.to(dt), cn.rad[:, None].to(dt), cn.height[:, None].to(dt),
-            cn.w2l.reshape(C, 9).to(dt),
-            torch.zeros((C, 14), dtype=dt, device=dev)]
-            + mat_cols(cn.mat_id), dim=1))
-    if not parts:
-        parts = [torch.zeros((1, 28 + 3 + 2 * TEXD_W), dtype=dt, device=dev)]
-    rows = torch.cat(parts, 0)
-    return torch.nn.functional.pad(rows, (0, PR_W - rows.shape[1]))
-
 
 def _image_texel(atlas, offset, w, h, tlu, tlv, u, v):
     """Texel of an image texture at (u, v): x = |(int)(u*w*tile_u) % w|,

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 from .. import telemetry
@@ -161,3 +162,41 @@ def uniform(key: tuple, shape, dtype=torch.float32,
     else:
         raise TypeError(f"uniform draws float32 or float64, not {dtype}")
     return out.reshape(shape)
+
+
+class ThreefryUniform:
+    """Default emission uniforms: the JAX emission's threefry key path
+    (``fold_in(key, chunk)``, then ``fold_in(., round)``; the direction
+    from ``stream(., PHOTON_EMIT_X, li)``, a chain step's BSDF uniforms
+    from ``fold_in(stream(., PHOTON_ALPHA, li), depth)``), drawn on
+    ``device``.  A draw depends on its key alone, never on call order."""
+
+    def __init__(self, seed: int, device):
+        self.key = PRNGKey(seed)
+        self.device = torch.device(device)
+
+    def key_of(self, li, chunk, rnd, depth) -> tuple:
+        """The key of a draw (depth -1: the emission direction)."""
+        kr = fold_in(fold_in(self.key, chunk), rnd)
+        if depth < 0:
+            return stream(kr, Purpose.PHOTON_EMIT_X, li)
+        return fold_in(stream(kr, Purpose.PHOTON_ALPHA, li), depth)
+
+    def __call__(self, li, chunk, rnd, depth, shape, dtype=torch.float32):
+        return uniform(self.key_of(li, chunk, rnd, depth), shape, dtype,
+                       self.device)
+
+    def round_keys(self, li, chunk, rounds: int, depth: int) -> np.ndarray:
+        """(rounds, 1 + depth, 2) uint32: ``key_of(li, chunk, r, d)`` at
+        [r, d + 1] for d from -1 to depth - 1, the keys the round kernel
+        draws with, for every round of a chunk at once (the threefry blocks
+        on numpy arrays of the rounds)."""
+        def fold(key, data):
+            return threefry2x32(key[0], key[1], 0, data & M32)
+
+        kc = fold_in(self.key, chunk)
+        kr = fold(kc, np.arange(rounds, dtype=np.int64))
+        emit = fold(fold(kr, Purpose.PHOTON_EMIT_X), li)
+        alpha = fold(fold(kr, Purpose.PHOTON_ALPHA), li)
+        keys = [emit] + [fold(alpha, d) for d in range(depth)]
+        return np.stack([np.stack(k, -1) for k in keys], 1).astype(np.uint32)

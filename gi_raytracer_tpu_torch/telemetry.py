@@ -24,12 +24,10 @@ span open on the host when it began (:func:`idle_by_span`).
 Each record holds its name, start and end in ns, its id, its parent's id
 (None for a root) and its root's id (the frame, the pass, the step: the
 spans of one job share it), and the attributes it was given, host-known
-ints only but the ``route`` of a ``photons.round`` span (``"k2"``: the
-round kernel, an instance of K2's walk kernel; ``"staged"``), of a
-``wave.trace`` span (``"k1"``: the megakernel; ``"staged"``) and of a
-``wave.inputs`` span (``"kernel"``: the wave-inputs kernel;
-``"torch"``).  A ``wave`` span's ``blocks`` and ``lanes`` count the 16x16
-blocks and the lanes it traced; a ``trace.analytic`` span's ``lanes`` and
+ints only but the ``route`` of a ``photons.round``, ``wave.trace`` or
+``wave.inputs`` span (the decision of ``routes`` that chose its code:
+``photon_round``, ``wave``, ``wave_inputs``).  A ``wave`` span's
+``blocks`` and ``lanes`` count the 16x16 blocks and the lanes it traced; a ``trace.analytic`` span's ``lanes`` and
 ``prims`` the rays and the spheres and cones its passes test.  Records are
 kept in memory: :func:`records` and :func:`reset`.
 

@@ -31,7 +31,7 @@ class TrainStep:
                  size: int = 256, depth: int = 8, photons: int = 50_000):
         self.scene = scene
         self.cfg = cfg.replace(min_samples=1, max_samples=1,
-                               max_depth=depth, integrator="staged")
+                               max_depth=depth)
         self.size = size
         small = PhotonBatch(*(t[:photons] for t in batch))
         self.n_stored = int(small.stored.sum())

@@ -30,7 +30,7 @@ from gi_raytracer_tpu.render.photon import (PhotonBatch as JaxBatch,
                                             build_photon_map as jax_build_map)
 from gi_raytracer_tpu_torch import convert
 from gi_raytracer_tpu_torch.ops import intersect as ti
-from gi_raytracer_tpu_torch.ops.cuda_megakernel import mega_why_not
+from gi_raytracer_tpu_torch.ops import prim_rows
 from gi_raytracer_tpu_torch.render import shading as tsh
 from gi_raytracer_tpu_torch.render.integrator import radiance_wave
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
@@ -191,7 +191,7 @@ def test_trace_closest_rows_swaps_in_the_analytic_row(mixed):
     want, wrow = ji.trace_closest_rows(
         js, jsh.build_prim_rows(js), jnp.asarray(ro), jnp.asarray(rd),
         t_max=jnp.asarray(lim), salt=7, backend="pallas")
-    got, grow = ti.trace_closest_rows(ts, tsh.build_prim_rows(ts), _t(ro),
+    got, grow = ti.trace_closest_rows(ts, prim_rows.build_prim_rows(ts), _t(ro),
                                       _t(rd), t_max=_t(lim), salt=7)
     wp = np.asarray(want.prim)
     assert np.array_equal(got.prim.numpy(), wp)
@@ -217,7 +217,7 @@ def test_sphere_cone_shade_rows_and_attributes():
     rd = tgt + rng.normal(scale=0.6, size=(1500, 3)) - ro
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
     jrows = np.asarray(jsh.build_prim_rows(js))
-    trows = tsh.build_prim_rows(ts)
+    trows = prim_rows.build_prim_rows(ts)
     assert trows.shape == jrows.shape == (71, 64)
     _close(trows.numpy(), jrows, 0)
     h = ji.trace_closest(js, jnp.asarray(ro), jnp.asarray(rd))
@@ -268,7 +268,6 @@ def test_analytic_cornell_staged_wave_matches_jax(cornell, with_map):
     jcfg = JaxConfig(min_samples=1, max_samples=1, max_depth=4,
                      adaptive=False, integrator="staged", knn_backend="jnp")
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    assert mega_why_not(ts, cfg)       # spheres, cones, image texture
     jpm = tpm = None
     if with_map:
         rng = np.random.default_rng(1)

@@ -28,8 +28,6 @@ from gi_raytracer_tpu.render.photon import (PhotonBatch as JaxBatch,
                                             build_photon_map as jax_build_map)
 from gi_raytracer_tpu_torch import convert
 from gi_raytracer_tpu_torch.ops import _cuda
-from gi_raytracer_tpu_torch.ops.cuda_megakernel import mega_why_not
-from gi_raytracer_tpu_torch.ops.intersect import uses_stream
 from gi_raytracer_tpu_torch.render.integrator import (dispatch_wave,
                                                       radiance_wave)
 from gi_raytracer_tpu_torch.scene.cornell import cornell_box
@@ -46,7 +44,7 @@ GLASS_SUBDIVS = 6   # 32,768 sphere triangles, 32,918 in all
 def scenes():
     js = jax_build(lambda b, mg: cornell_box(b, mg, True, GLASS_SUBDIVS))
     ts = port_scene(js)
-    assert ts.n_tris == 32_918 and uses_stream(ts)
+    assert ts.n_tris == 32_918
     return js, ts
 
 
@@ -102,12 +100,13 @@ def test_staged_big_scene_wave_matches_jax(scenes):
 
 def test_staged_wave_counts_k1_plain_only_where_k1_runs(scenes):
     """A mega-eligible scene's staged wave is K1's plain version (counted);
-    past MEGA_TRI_CAP it is the path (not counted)."""
+    past MEGA_TRI_CAP it is the path (not counted).  Which route each
+    takes is tests/test_torch_routes.py's ("cornell_small",
+    "glass_32918")."""
     _, big = scenes
     small = cornell_box(*_port_builders(), False).build(device="cpu")
     cfg = convert.config_from_dict(dict(
         dataclasses.asdict(JaxConfig()), max_depth=1, adaptive=False))
-    assert mega_why_not(small, cfg) == [] and mega_why_not(big, cfg)
     ro = torch.tensor([[-0.4, 0.3, -3.8]]).expand(8, 3).contiguous()
     rd = torch.tensor([[0.0, 0.0, 1.0]]).expand(8, 3).contiguous()
     sx = sy = torch.full((1, 8), 0.5)

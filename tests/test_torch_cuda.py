@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from gi_raytracer_tpu_torch import routes
 from gi_raytracer_tpu_torch.config import RenderConfig
 from gi_raytracer_tpu_torch.ops import _cuda
 from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
@@ -24,7 +25,8 @@ from gi_raytracer_tpu_torch.ops.intersect import (chunk_boxes, stream_boxes,
                                                   trace_closest, trace_tables)
 from gi_raytracer_tpu_torch.render import Camera, Renderer
 from gi_raytracer_tpu_torch.render.geom import normalize
-from gi_raytracer_tpu_torch.render.integrator import radiance_wave
+from gi_raytracer_tpu_torch.render.integrator import (_caustic_fold,
+                                                      radiance_wave)
 from gi_raytracer_tpu_torch.render.photon import (PhotonBatch,
                                                   build_photon_map,
                                                   sample_photons,
@@ -141,10 +143,14 @@ def _k1_gate(scene, cam, size, cfg, ro=None, rd=None, photon_map=None):
     rd = rd_w if rd is None else rd
     lane = torch.arange(ro.shape[0], device=ro.device)
     tests = torch.zeros(2, dtype=torch.int64, device=ro.device)
+    rec = (None if photon_map is None else torch.empty(
+        (ro.shape[0], cfg.max_depth, 9), device=ro.device))
     before = _cuda.launches["megakernel"]
     got, (gc, gs) = radiance_wave_mega(scene, cfg, ro, rd, sx, sy, lane, 0,
-                                       photon_map, tests=tests)
+                                       rec, tests=tests)
     assert _cuda.launches["megakernel"] == before + 1
+    if rec is not None:          # the caustic term, as dispatch_wave folds it
+        got = got + _caustic_fold(photon_map, cfg, rec)
     want, (wc, ws) = radiance_wave(scene, cfg, ro, rd, sx, sy, 0, photon_map,
                                    lane_ids=lane, plain=True)
     assert torch.isfinite(got).all()
@@ -1162,7 +1168,7 @@ def test_photon_round_kernel_matches_staged(dev, scene, chunk, n):
     from gi_raytracer_tpu_torch.render import photon
 
     cfg = RenderConfig(photons=750_000, seed=2876543219)
-    assert photon.round_kernel_why_not(scene, cfg, None, None, False) == []
+    assert routes.photon_round(scene, cfg, None, None, False) == ("k2", [])
     got, got_live, launches, plain = _chunk_rounds(
         scene, cfg, chunk, n, 750_000, photon._light_row(scene, 0, 750_000))
     want, want_live, _, _ = _chunk_rounds(scene, cfg, chunk, n, 750_000,
@@ -1234,7 +1240,7 @@ def test_photon_round_kernel_matches_staged_glossy_checker(dev):
 
     box = _glossy_box(dev)
     cfg = RenderConfig(photons=65_536, ray_chunk=32_768, seed=3141592653)
-    assert photon.round_kernel_why_not(box, cfg, None, None, False) == []
+    assert routes.photon_round(box, cfg, None, None, False) == ("k2", [])
     got = _chunk_rounds(box, cfg, 1, 32_768, 65_536,
                         photon._light_row(box, 0, 65_536))
     want = _chunk_rounds(box, cfg, 1, 32_768, 65_536, None)
@@ -1259,7 +1265,7 @@ def test_photon_round_route(dev, scene):
 
     cfg = RenderConfig(photons=2_048, ray_chunk=1_024, seed=7)
 
-    def routes(fn):
+    def rounds(fn):
         telemetry.reset()
         _cuda.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]):
@@ -1270,21 +1276,21 @@ def test_photon_round_route(dev, scene):
         telemetry.reset()
         return out, set(got), dict(_cuda.launches)
 
-    fast, r, launches = routes(lambda: trace_photons(scene, cfg))
+    fast, r, launches = rounds(lambda: trace_photons(scene, cfg))
     assert r == {"k2"} and launches.get("intersect", 0) == 0
     assert launches["photon_round"] > 0
 
     class Replay(photon.ThreefryUniform):
         pass
 
-    assert photon.round_kernel_why_not(
-        scene, cfg, None, Replay(cfg.seed, dev), False) == [
-            "emission uniforms from Replay, not ThreefryUniform"]
-    staged, r, launches = routes(lambda: trace_photons(
+    assert routes.photon_round(scene, cfg, None, Replay(cfg.seed, dev),
+                               False) == (
+        "staged", ["emission uniforms from Replay, not ThreefryUniform"])
+    staged, r, launches = rounds(lambda: trace_photons(
         scene, cfg, uniform=Replay(cfg.seed, dev)))
     assert r == {"staged"} and launches.get("photon_round", 0) == 0
     assert torch.equal(fast.stored, staged.stored)
-    _, r, _ = routes(lambda: trace_photons(scene, cfg, differentiable=True))
+    _, r, _ = rounds(lambda: trace_photons(scene, cfg, differentiable=True))
     assert r == {"staged"}
     b = SceneBuilder()
     white = b.add_texture_const((0.9, 0.9, 0.9))
@@ -1295,7 +1301,7 @@ def test_photon_round_route(dev, scene):
                  b.add_material(white, black, 0.0, 0.0, 1.5))
     b.add_light((0.0, 3.0, 0.0), (8.0, 8.0, 8.0), 0.3)
     sph = b.build(device=dev)
-    _, r, _ = routes(lambda: trace_photons(sph, cfg))
+    _, r, _ = rounds(lambda: trace_photons(sph, cfg))
     assert r == {"staged"}
 
 
@@ -1311,7 +1317,7 @@ def _wave_inputs_equal(r, wave, pos=None):
     before = _cuda.launches["wave_inputs"]
     got = r.wave_inputs(wave, pos)
     assert _cuda.launches["wave_inputs"] == before + 1
-    want = r.wave_inputs_plain(wave, pos)
+    want = r.wave_inputs_plain(r.halton_index(wave, pos))
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
         assert torch.equal(_bits(g), _bits(w))
@@ -1327,7 +1333,7 @@ def test_wave_inputs_kernel_matches_plain(dev, scene, size, depth, wave):
     r = Renderer(scene, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
                  RenderConfig(min_samples=8, max_samples=8, max_depth=depth),
                  size, size)
-    assert r.inputs_route() == "kernel"
+    assert r.frame_routes().inputs == "kernel"
     assert r._index_bits == (22 if size == 512 else 21)
     ro, rd, sx, sy = _wave_inputs_equal(r, wave)
     assert sx.shape == (depth, size * size) and rd.shape == (size * size, 3)
@@ -1361,7 +1367,7 @@ def test_wave_inputs_kernel_past_2_32(dev, scene, scramble):
     r = Renderer(scene, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
                  RenderConfig(max_depth=16), 512, 512)
     r.sampler = HaltonSampler(scramble, seed=11)
-    assert r.inputs_route() == "kernel"
+    assert r.frame_routes().inputs == "kernel"
     assert 11_507 * r.enum.increment + 2_560 == 2 ** 32
     for wave in (11_507, 40_000):
         _wave_inputs_equal(r, wave)
@@ -1394,9 +1400,9 @@ def test_wave_inputs_kernel_once_a_wave(dev, scene):
     r.camera = Camera(pos=torch.tensor(CAMERA_POS, device=dev,
                                        requires_grad=True),
                       look_at=CAMERA_LOOK_AT)
-    from gi_raytracer_tpu_torch.render.integrator import wave_inputs_why_not
-    assert wave_inputs_why_not(r) == [
-        "the camera carries a gradient: autograd must see the operations"]
+    assert routes.wave_inputs(r.cfg, r.device, r.sampler, r.camera) == (
+        "torch",
+        ["the camera carries a gradient: autograd must see the operations"])
     n = _cuda.launches["wave_inputs"]
     ro, rd, _, _ = r.wave_inputs(0)
     assert _cuda.launches["wave_inputs"] == n and rd.requires_grad

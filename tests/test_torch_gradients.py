@@ -28,8 +28,8 @@ from gi_raytracer_tpu.scene import SceneBuilder as JaxBuilder
 from gi_raytracer_tpu.scene import meshgen as jmeshgen
 from gi_raytracer_tpu_torch import gradcheck as tgc
 from gi_raytracer_tpu_torch.config import RenderConfig
-from gi_raytracer_tpu_torch.ops.cuda_megakernel import radiance_wave_mega
 from gi_raytracer_tpu_torch.render import Camera, Renderer
+from gi_raytracer_tpu_torch.render.integrator import dispatch_wave
 from gi_raytracer_tpu_torch.render import photon as tph
 from gi_raytracer_tpu_torch.render.photon_knn import (FAR, _knn_tables,
                                                       sample_photons_plain,
@@ -330,21 +330,21 @@ def test_megakernel_refuses_inputs_that_need_a_gradient():
     cam_pos, cam_look = _box(b, meshgen)
     scene = b.build(device="cpu")
     cfg = RenderConfig(adaptive=False, min_samples=1, max_samples=1,
-                       max_depth=2)
+                       max_depth=2, integrator="mega")
     r = Renderer(scene, Camera(pos=cam_pos, look_at=cam_look), cfg, 16, 16)
     ro, rd, sx, sy = r.wave_inputs(0)
     lane = torch.arange(ro.shape[0])
-    radiance_wave_mega(scene, cfg, ro, rd, sx, sy, lane)     # no gradient
+    dispatch_wave(scene, cfg, ro, rd, sx, sy, lane_ids=lane)  # no gradient
     col = scene.lights.col.clone().requires_grad_(True)
     lit = dataclasses.replace(scene, lights=dataclasses.replace(scene.lights,
                                                                 col=col))
     with pytest.raises(ValueError, match="forward-only"):
-        radiance_wave_mega(lit, cfg, ro, rd, sx, sy, lane)
+        dispatch_wave(lit, cfg, ro, rd, sx, sy, lane_ids=lane)
     with pytest.raises(ValueError, match="forward-only"):
-        radiance_wave_mega(scene, cfg, ro.clone().requires_grad_(True), rd,
-                           sx, sy, lane)
+        dispatch_wave(scene, cfg, ro.clone().requires_grad_(True), rd, sx,
+                      sy, lane_ids=lane)
     with torch.no_grad():
-        radiance_wave_mega(lit, cfg, ro, rd, sx, sy, lane)
+        dispatch_wave(lit, cfg, ro, rd, sx, sy, lane_ids=lane)
 
 
 # ---- differentiable photon tracing ----------------------------------------

@@ -1,6 +1,6 @@
 """Port parity: the megakernel's plain version (the port's
-radiance_wave_mega on CPU tensors, i.e. the staged wave on the plain trace)
-against the JAX bounce megakernel in interpret mode, with the gates of
+``dispatch_wave`` with ``integrator="mega"`` on CPU tensors, i.e. the staged
+wave on the plain trace) against the JAX bounce megakernel in interpret mode, with the gates of
 tests/test_megakernel.py: max abs error < 1e-4 and equal closest and
 shadow-ray counts.  On the Cornell box (2 chunks at test size) the JAX
 kernel takes its linear walk; on the 8,342-triangle glass box (66 chunks,
@@ -21,9 +21,9 @@ from gi_raytracer_tpu.render.photon import (PhotonBatch as JaxBatch,
                                             build_photon_map as jax_build_map)
 from gi_raytracer_tpu.ops.pallas_megakernel import (
     radiance_wave_mega as jax_mega)
-from gi_raytracer_tpu_torch import convert
-from gi_raytracer_tpu_torch.ops.cuda_megakernel import (radiance_wave_mega,
-                                                        mega_why_not)
+from gi_raytracer_tpu_torch import convert, routes
+from gi_raytracer_tpu_torch.ops import _cuda
+from gi_raytracer_tpu_torch.render.integrator import dispatch_wave
 
 from gi_raytracer_tpu.ops.pallas_megakernel import LINEAR_CHUNK_CAP
 from gi_raytracer_tpu_torch.ops.intersect import chunk_boxes
@@ -80,8 +80,9 @@ def test_mega_plain_matches_jax_megakernel(scenes, photon_maps, depth,
     js, ts = scenes
     jcfg = JaxConfig(min_samples=1, max_samples=1, max_depth=depth,
                      adaptive=False, dtype="float32", knn_backend="jnp")
-    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    assert mega_why_not(ts, cfg) == []
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg)).replace(
+        integrator="mega")
+    assert routes.wave(ts, cfg) == ("k1", [])
     jpm, tpm = photon_maps if with_map else (None, None)
     ro, rd, sx, sy = _wave_inputs(js, jcfg)
     R = ro.shape[0]
@@ -90,9 +91,11 @@ def test_mega_plain_matches_jax_megakernel(scenes, photon_maps, depth,
         js, jcfg, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(sx),
         jnp.asarray(sy), jnp.arange(R, dtype=jnp.uint32), wave_salt=0,
         photon_map=jpm, interpret=True)
-    got, (nc_g, ns_g) = radiance_wave_mega(
-        ts, cfg, *[torch.from_numpy(a) for a in (ro, rd, sx, sy)],
-        torch.arange(R), 0, tpm)
+    _cuda.reset_launches()
+    got, (nc_g, ns_g) = dispatch_wave(
+        ts, cfg, *[torch.from_numpy(a) for a in (ro, rd, sx, sy)], 0, tpm,
+        lane_ids=torch.arange(R))
+    assert _cuda.plain_calls["megakernel"] == 1
     want, got = np.asarray(want), got.numpy()
     assert np.isfinite(got).all()
     assert got.max() > 0.05                      # the wave sees light
@@ -112,17 +115,18 @@ def test_mega_plain_matches_jax_megakernel_glass_box():
     assert chunk_boxes(ts).shape[1] == 66 > LINEAR_CHUNK_CAP
     jcfg = JaxConfig(min_samples=1, max_samples=1, max_depth=4,
                      adaptive=False, dtype="float32", knn_backend="jnp")
-    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    assert mega_why_not(ts, cfg) == []
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg)).replace(
+        integrator="mega")
+    assert routes.wave(ts, cfg) == ("k1", [])
     ro, rd, sx, sy = _wave_inputs(js, jcfg, 16, 16)
     R = ro.shape[0]
     want, (nc_w, ns_w) = jax_mega(
         js, jcfg, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(sx),
         jnp.asarray(sy), jnp.arange(R, dtype=jnp.uint32), wave_salt=0,
         interpret=True)
-    got, (nc_g, ns_g) = radiance_wave_mega(
+    got, (nc_g, ns_g) = dispatch_wave(
         ts, cfg, *[torch.from_numpy(a) for a in (ro, rd, sx, sy)],
-        torch.arange(R), 0)
+        lane_ids=torch.arange(R))
     want, got = np.asarray(want), got.numpy()
     assert np.isfinite(got).all() and got.max() > 0.05
     err = np.abs(got - want).max()

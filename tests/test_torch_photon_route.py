@@ -1,10 +1,8 @@
-"""The photon pass's choice between the round kernel and the staged round,
-on the CPU: the reasons the kernel refuses a pass, the host's threefry key
-schedule it is handed, Halton dim 1 as it evaluates it, and the route each
-round's span names.  (The kernel itself runs on the card only:
+"""The photon pass's round kernel's host side, on the CPU: the host's
+threefry key schedule it is handed, Halton dim 1 as it evaluates it, and
+the route each round's span names.  (The reasons it refuses a pass are
+``tests/test_torch_routes.py``'s; the kernel itself runs on the card only:
 ``tests/test_torch_cuda.py`` holds it to the staged round.)"""
-
-import types
 
 import numpy as np
 import pytest
@@ -17,78 +15,6 @@ from gi_raytracer_tpu_torch.render import photon
 from gi_raytracer_tpu_torch.sampling.halton import HaltonSampler
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
 from gi_raytracer_tpu_torch.scene.cornell import cornell_box
-
-
-def _eligible():
-    """A stand-in for an eligible scene on the card (the attributes the
-    choice reads), a config, and the defaults."""
-    f32 = torch.zeros(0, dtype=torch.float32)
-    scene = types.SimpleNamespace(
-        device=torch.device("cuda", 0), n_spheres=0, n_cones=0,
-        has_image_tex=False, n_tris=2_198,
-        lights=types.SimpleNamespace(pos=f32), tris=types.SimpleNamespace(
-            v0=f32))
-    return dict(scene=scene, cfg=RenderConfig(), sampler=None, uniform=None,
-                differentiable=False)
-
-
-class _Replay(photon.ThreefryUniform):
-    """Another uniform source (one that replays recorded draws)."""
-
-
-class _Sampler(HaltonSampler):
-    pass
-
-
-def _with(scene_attrs=(), **changes):
-    """A change to ``_eligible()``'s arguments: the scene's attributes
-    set, other arguments replaced (a function: of the arguments)."""
-    def apply(kw):
-        for a, x in dict(scene_attrs).items():
-            setattr(kw["scene"], a, x)
-        for k, v in changes.items():
-            kw[k] = v(kw) if isinstance(v, types.FunctionType) else v
-        return kw
-    return apply
-
-
-f64 = torch.zeros(0, dtype=torch.float64)
-REFUSALS = {
-    "cpu": (_with(scene_attrs={"device": torch.device("cpu")}),
-            "tensors on cpu"),
-    "spheres": (_with(scene_attrs={"n_spheres": 2}), "analytic prims"),
-    "cones": (_with(scene_attrs={"n_cones": 1}), "analytic prims"),
-    "image_textures": (_with(scene_attrs={"has_image_tex": True}),
-                       "image textures"),
-    "past_k2_rows": (_with(scene_attrs={"n_tris": 16_385}),
-                     "16385 triangles"),
-    "no_triangles": (_with(scene_attrs={"n_tris": 0}), "0 triangles"),
-    "float64": (_with(cfg=lambda kw: kw["cfg"].replace(dtype="float64"),
-                      scene_attrs={"lights": types.SimpleNamespace(pos=f64),
-                                   "tris": types.SimpleNamespace(v0=f64)}),
-                "dtype float64"),
-    "differentiable": (_with(differentiable=True), "differentiable"),
-    "other_uniform": (_with(uniform=_Replay(0, "cpu")), "_Replay"),
-    "other_sampler": (_with(sampler=_Sampler()), "_Sampler"),
-    "deep_chain": (_with(cfg=lambda kw: kw["cfg"].replace(photon_depth=17)),
-                   "photon_depth 17"),
-}
-
-
-def test_round_kernel_takes_an_eligible_pass():
-    assert photon.round_kernel_why_not(**_eligible()) == []
-    kw = _eligible()
-    kw.update(sampler=HaltonSampler(),
-              uniform=photon.ThreefryUniform(5, "cpu"))
-    assert photon.round_kernel_why_not(**kw) == []
-
-
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_round_kernel_names_each_refusal(case):
-    """Each condition alone refuses the kernel, and the reason names it."""
-    change, reason = REFUSALS[case]
-    why = photon.round_kernel_why_not(**change(_eligible()))
-    assert len(why) == 1 and reason in why[0], why
 
 
 @pytest.mark.parametrize("li, chunk", [(0, 0), (0, 5), (2, 1), (3, 17)])

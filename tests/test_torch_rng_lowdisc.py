@@ -27,7 +27,8 @@ from gi_raytracer_tpu.sampling import lowdisc as jl
 from gi_raytracer_tpu_torch import convert, entry
 from gi_raytracer_tpu_torch.render import Camera, Renderer
 from gi_raytracer_tpu_torch.render.integrator import render_image
-from gi_raytracer_tpu_torch.render.photon import ThreefryUniform, trace_photons
+from gi_raytracer_tpu_torch.render.photon import trace_photons
+from gi_raytracer_tpu_torch.sampling.rng import ThreefryUniform
 from gi_raytracer_tpu_torch.sampling import halton as th
 from gi_raytracer_tpu_torch.sampling import lowdisc as tl
 from gi_raytracer_tpu_torch.sampling import rng
@@ -146,7 +147,7 @@ def test_depth_130_samples_and_wave_match_jax():
     assert np.array_equal(tsx.numpy(), np.asarray(jsx))
     assert np.array_equal(tsy.numpy(), np.asarray(jsy))
     want, (nc, ns) = jr._wave_counted(js, None, idx, jnp.uint32(0))
-    got, n = tr.wave_radiance(0)
+    got, n = tr.block_wave(0)
     want, got = np.asarray(want), got.reshape(-1, 3).numpy()
     assert np.isfinite(got).all() and got.max() > 0.05
     close = (np.abs(got - want) <= 1e-4).all(-1)
@@ -180,8 +181,8 @@ def test_deep_dims_reach_the_radiance():
         dataclasses.asdict(JaxConfig()), min_samples=1, max_samples=1,
         max_depth=130, min_depth=130, adaptive=False))
     cam = Camera(pos=(0.5, 0.2, -1.0), look_at=(0.0, 0.0, 3.0))
-    a, na = Renderer(ts, cam, cfg, 16, 16).wave_radiance(0)
-    b, nb = Renderer(ts, cam, cfg.replace(seed=6), 16, 16).wave_radiance(0)
+    a, na = Renderer(ts, cam, cfg, 16, 16).block_wave(0)
+    b, nb = Renderer(ts, cam, cfg.replace(seed=6), 16, 16).block_wave(0)
     assert int(na) == int(nb) == 256 * 130 * 2
     assert not torch.equal(a, b)
     assert (a - b).abs().max() < 1e-4

@@ -2,8 +2,6 @@
 array, on both Cornell sizes (both at their default SAH BVH) and on the
 numpy median split (``use_native=False`` on both sides)."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -11,7 +9,6 @@ import torch
 from gi_raytracer_tpu.config import RenderConfig as JaxConfig
 from gi_raytracer_tpu.ops.pallas_megakernel import mega_why_not as jax_why_not
 from gi_raytracer_tpu_torch import convert
-from gi_raytracer_tpu_torch.ops.cuda_megakernel import mega_why_not
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
 from gi_raytracer_tpu_torch.scene.cornell import (cornell_box, FULL_TRIS,
                                                   SMALL_TRIS)
@@ -84,9 +81,8 @@ def test_carried_scene_equals_built_scene(scenes):
 
 def test_full_box_is_megakernel_eligible():
     ts = cornell_box(SceneBuilder, meshgen, True).build(device="cpu")
+    # the port's side is tests/test_torch_routes.py's "cornell_full" case
     cfg = JaxConfig(max_depth=8, adaptive=False)
-    port_cfg = convert.config_from_dict(dataclasses.asdict(cfg))
-    assert mega_why_not(ts, port_cfg) == []
     assert jax_why_not(jax_cornell(True), cfg) == []
     # 2,198 triangles fill 18 chunks of 128
     assert -(-ts.n_tris // 128) == 18

@@ -10,6 +10,7 @@ from gi_raytracer_tpu.render import camera as jcam
 from gi_raytracer_tpu.render import shading as jsh
 from gi_raytracer_tpu.ops.intersect import closest_hit as jax_closest_hit
 from gi_raytracer_tpu_torch import convert
+from gi_raytracer_tpu_torch.ops import prim_rows
 from gi_raytracer_tpu_torch.render import camera as tcam
 from gi_raytracer_tpu_torch.render import shading as tsh
 from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
@@ -66,8 +67,8 @@ def test_primary_rays():
 def test_build_prim_rows(scenes):
     js, ts = scenes
     want = np.asarray(jsh.build_prim_rows(js))
-    got = tsh.build_prim_rows(ts).numpy()
-    assert got.shape == want.shape == (ts.n_tris, tsh.PR_W)
+    got = prim_rows.build_prim_rows(ts).numpy()
+    assert got.shape == want.shape == (ts.n_tris, prim_rows.PR_W)
     _close(got, want, atol=0.0)
 
 
@@ -94,7 +95,7 @@ def test_shade_from_rows(scenes, hits):
     jrows = jsh.build_prim_rows(js)
     jrow = jrows[np.clip(prim, 0, js.n_tris - 1)]
     want = jsh.shade_from_rows(js, jrow, ro, rd, t, prim, u, v)
-    trow = tsh.build_prim_rows(ts)[torch.from_numpy(
+    trow = prim_rows.build_prim_rows(ts)[torch.from_numpy(
         np.clip(prim, 0, js.n_tris - 1)).long()]
     got = tsh.shade_from_rows(ts, trow, *[torch.from_numpy(x) for x in
                                           (ro, rd, t, prim, u, v)])
@@ -139,7 +140,7 @@ def test_checker_texture_matches_jax():
     want = jsh.shade_from_rows(js, jsh.build_prim_rows(js)[p], ro, rd, t,
                                prim, u, v)
     got = tsh.shade_from_rows(
-        ts, tsh.build_prim_rows(ts)[torch.from_numpy(p).long()],
+        ts, prim_rows.build_prim_rows(ts)[torch.from_numpy(p).long()],
         *[torch.from_numpy(x) for x in (ro, rd, t, prim, u, v)])
     _close(got.color, want.color)
     _close(got.uv, want.uv)

@@ -14,10 +14,10 @@ from gi_raytracer_tpu.ops import pallas_intersect as pi
 from gi_raytracer_tpu_torch.ops import _cuda
 from gi_raytracer_tpu_torch.ops import cuda_intersect as ci
 from gi_raytracer_tpu_torch.ops import cuda_stream as cs
-from gi_raytracer_tpu_torch.ops.intersect import (VMEM_TRI_CAP, chunk_boxes,
-                                                  exact_hit, stream_boxes,
-                                                  trace_closest, trace_any,
-                                                  trace_tables, uses_stream)
+from gi_raytracer_tpu_torch import routes
+from gi_raytracer_tpu_torch.ops.intersect import (chunk_boxes, exact_hit,
+                                                  stream_boxes, trace_closest,
+                                                  trace_any, trace_tables)
 from gi_raytracer_tpu_torch.scene import SceneBuilder
 from gi_raytracer_tpu_torch.scene.terrain import terrain_scene, terrain_tris
 
@@ -190,8 +190,8 @@ def test_scenes_past_the_cap_route_to_the_stream_trace():
     one at 16,384 or below through K2's; the answers agree."""
     big = terrain_scene(SceneBuilder, 92).build(device="cpu")     # 16,562
     small = terrain_scene(SceneBuilder, 91).build(device="cpu")   # 16,200
-    assert terrain_tris(92) > VMEM_TRI_CAP >= terrain_tris(91)
-    assert uses_stream(big) and not uses_stream(small)
+    assert terrain_tris(92) > routes.VMEM_TRI_CAP >= terrain_tris(91)
+    assert routes.trace(big)[0] == "k4" and routes.trace(small)[0] == "k2"
     g = torch.Generator().manual_seed(1)
     ro = torch.tensor([[0.0, 18.0, -30.0]]).expand(300, 3).contiguous()
     rd = torch.randn((300, 3), generator=g) * 0.3 \

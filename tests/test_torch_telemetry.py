@@ -178,7 +178,7 @@ def test_ray_counter_is_exact_past_2_24(small_box):
     st["rays"] = torch.tensor(2**24 + 1)
     st = r.step(st, 0)
     assert st["rays"].dtype == torch.int64
-    assert int(st["rays"]) == 2**24 + 1 + int(r.wave_radiance(0)[1])
+    assert int(st["rays"]) == 2**24 + 1 + int(r.block_wave(0)[1])
     assert n > 0
 
 

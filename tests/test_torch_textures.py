@@ -16,6 +16,7 @@ import torch
 
 from gi_raytracer_tpu.render import shading as jsh
 from gi_raytracer_tpu.scene import types as JT
+from gi_raytracer_tpu_torch.ops import prim_rows
 from gi_raytracer_tpu_torch.render import shading as tsh
 from gi_raytracer_tpu_torch.scene import types as TT
 
@@ -78,7 +79,7 @@ def test_packed_descriptor_fetch_matches_jax(tables):
     jscene = types.SimpleNamespace(textures=jt, has_image_tex=True)
     tscene = types.SimpleNamespace(textures=tt, has_image_tex=True)
     jd = jsh._tex_descriptor(jt, jnp.asarray(tid), jnp.float32)
-    td = tsh._tex_descriptor(tt, torch.from_numpy(tid), torch.float32)
+    td = prim_rows._tex_descriptor(tt, torch.from_numpy(tid), torch.float32)
     assert np.array_equal(td.numpy(), np.asarray(jd))
     w_rgb, w_a = jsh._tex_eval_desc(jscene, jd, jnp.asarray(uv[:, 0]),
                                     jnp.asarray(uv[:, 1]))

@@ -1,75 +1,22 @@
-"""The wave-inputs kernel's host side on the CPU: the reasons that send a
-wave's set-up to the torch route (``wave_inputs_why_not``), the packed
-permutation table and per-dim plan the kernel reads (against
+"""The wave-inputs kernel's host side on the CPU: the packed permutation
+table and per-dim plan the kernel reads (against
 ``HaltonSampler.arith_plan``, and the kernel's digit loop run from them in
-numpy against ``HaltonSampler.sample``), and the ``route`` of a CPU
-render's ``wave.inputs`` spans.  The kernel itself is held to its plain
-version on the card (``tests/test_torch_cuda.py``)."""
-
-import types
+numpy against ``HaltonSampler.sample``).  The reasons that send a wave's
+set-up to the torch route are ``tests/test_torch_routes.py``'s; the kernel
+itself is held to its plain version on the card
+(``tests/test_torch_cuda.py``)."""
 
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-from gi_raytracer_tpu_torch import telemetry
-from gi_raytracer_tpu_torch.config import RenderConfig
 from gi_raytracer_tpu_torch.ops.cuda_wave_inputs import MAX_DEPTH, dim_plan
-from gi_raytracer_tpu_torch.render import Camera, Renderer
-from gi_raytracer_tpu_torch.render.integrator import wave_inputs_why_not
 from gi_raytracer_tpu_torch.sampling.halton import (ARITH_FIRST,
                                                     ARITH_MAX_PRIME,
                                                     ARITH_PRIMES, PRIMES,
                                                     HaltonSampler)
-from gi_raytracer_tpu_torch.scene import SceneBuilder, meshgen
-from gi_raytracer_tpu_torch.scene.cornell import (CAMERA_LOOK_AT, CAMERA_POS,
-                                                  cornell_box)
 
 M32 = 0xFFFFFFFF
-
-
-def _on_card(**kw):
-    """What ``wave_inputs_why_not`` reads of a renderer, as a card's
-    renderer would hold it, with ``kw`` replaced."""
-    r = dict(device=torch.device("cuda", 0), cfg=RenderConfig(max_depth=8),
-             camera=Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
-             sampler=HaltonSampler())
-    return types.SimpleNamespace(**dict(r, **kw))
-
-
-class _OtherSampler(HaltonSampler):
-    pass
-
-
-GRAD = "the camera carries a gradient: autograd must see the operations"
-
-
-@pytest.mark.parametrize("kw, why", [
-    ({}, []),
-    ({"cfg": RenderConfig(max_depth=MAX_DEPTH)}, []),
-    ({"device": torch.device("cpu")}, ["tensors on cpu, not the card"]),
-    ({"cfg": RenderConfig(max_depth=8, dtype="float64")},
-     ["dtype float64"]),
-    ({"cfg": RenderConfig(max_depth=17)},
-     ["max_depth 17 > 16: dims past Halton's arithmetic range"]),
-    ({"sampler": _OtherSampler()},
-     ["sampler _OtherSampler, not HaltonSampler"]),
-    ({"camera": Camera(pos=torch.tensor(CAMERA_POS, requires_grad=True),
-                       look_at=CAMERA_LOOK_AT)}, [GRAD]),
-    ({"camera": Camera(pos=CAMERA_POS, look_at=tuple(
-        torch.tensor(v, requires_grad=True) for v in CAMERA_LOOK_AT))},
-     [GRAD])])
-def test_wave_inputs_why_not_names_each_reason(kw, why):
-    assert wave_inputs_why_not(_on_card(**kw)) == why
-
-
-def test_a_camera_gradient_counts_only_under_grad_mode():
-    cam = Camera(pos=torch.tensor(CAMERA_POS, requires_grad=True),
-                 look_at=CAMERA_LOOK_AT)
-    assert wave_inputs_why_not(_on_card(camera=cam)) == [GRAD]
-    with torch.no_grad():
-        assert wave_inputs_why_not(_on_card(camera=cam)) == []
 
 
 def test_the_arithmetic_range_ends_past_depth_16():
@@ -150,26 +97,3 @@ def test_kernel_digit_loop_from_the_plan_equals_sample(scramble, index_bits):
         want = s.sample(dim, t_idx, index_bits).numpy()
         np.testing.assert_array_equal(g.view(np.uint32),
                                       want.view(np.uint32), err_msg=str(dim))
-
-
-def test_cpu_render_sets_up_on_the_torch_route():
-    """A CPU render's ``wave.inputs`` spans carry ``route="torch"``, and its
-    frame keeps no camera constants (they are the kernel route's)."""
-    box = cornell_box(SceneBuilder, meshgen, False).build(device="cpu")
-    cfg = RenderConfig(adaptive=False, min_samples=2, max_samples=2,
-                       max_depth=2)
-    r = Renderer(box, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT), cfg,
-                 16, 16)
-    assert r.inputs_route() == "torch"
-    telemetry.reset()
-    try:
-        with profile(activities=[ProfilerActivity.CPU]):
-            r.render()
-        routes = [sp.attrs.get("route") for sp in telemetry.records()
-                  if sp.name == "wave.inputs"]
-    finally:
-        telemetry.reset()
-    assert routes == ["torch", "torch"] and r._frame_cam is None
-    ro, rd, sx, sy = r.wave_inputs(1)
-    for a, b in zip((ro, rd, sx, sy), r.wave_inputs_plain(1)):
-        assert torch.equal(a, b)
