@@ -28,6 +28,15 @@ Counterpart of ``gi_raytracer_tpu.render.integrator``:
   (``Renderer.start``); each ``wave.inputs`` span names its ``route``,
   ``"kernel"`` or ``"torch"``, and each ``wave.trace`` span its wave's,
   ``"k1"`` or ``"staged"``.
+* On the card a staged wave of the band's full lane count is one CUDA
+  graph's replay (``WaveGraph``, ``Renderer.replay_wave``) where the
+  frame's ``routes.wave_graph`` allows it: the graph is captured once a
+  renderer (again after a change to its scene or config) and every such
+  wave copies its inputs in and replays it.  The wave therefore waits for
+  nothing on the host: the hash's integer keys are folded there
+  (``rng.hash_bits``) and the ambient tensor is made once a renderer
+  (``Renderer.ambient``).  Each ``wave.trace`` span names its ``graph``,
+  ``"replay"`` or ``"eager"``.
 * In a fog scene every bounce marches the fog after the closest hit
   (``atmosphere.fog_override``) and every shadow ray through it
   (``atmosphere.fog_occludes``).
@@ -57,7 +66,7 @@ from ..ops.prim_rows import build_prim_rows
 from ..sampling.halton import HaltonSampler, HaltonEnum, MAX_QMC_DIMS
 from ..sampling import rng
 from ..sampling.rng import Purpose, hash_u01
-from ..scene.types import derived
+from ..scene.types import dataclass_tensors, derived
 from . import photon
 from .atmosphere import fog_occludes, fog_override
 from .camera import Camera, primary_rays, ray_frame
@@ -116,9 +125,16 @@ def _direct_light(scene, cfg: RenderConfig, point, normal, rough, u_light,
     return acc
 
 
+def ambient_tensor(cfg: RenderConfig, dtype, device) -> torch.Tensor:
+    """``cfg.ambient`` as a (3,) tensor on ``device`` (a copy to the card,
+    which waits)."""
+    with telemetry.sync("wave.ambient"):
+        return torch.tensor(cfg.ambient, dtype=dtype, device=device)
+
+
 def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
                   wave_salt=0, photon_map=None, lane_base=0, lane_ids=None,
-                  prim_rows=None, plain=False):
+                  prim_rows=None, plain=False, ambient=None):
     """Trace a wave through ``cfg.max_depth`` bounces.  Returns ((R,3)
     radiance, (n_closest, n_shadow)): the honest per-wave counts of alive
     closest-hit lanes and issued shadow-ray lanes.
@@ -126,7 +142,9 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
     Every stochastic stream is keyed on (lane id, purpose, depth); lane ids
     are ``lane_ids`` or ``lane_base + arange(R)``.  ``plain=True`` runs the
     plain trace and kNN versions on any device (comparison runs only,
-    counted as K1's plain version)."""
+    counted as K1's plain version).  ``ambient``: ``cfg.ambient`` as a
+    tensor of the rays' dtype and device (``ambient_tensor``, made here
+    when None)."""
     if plain:
         _cuda.plain_calls["megakernel"] += 1
     R = ro.shape[0]
@@ -134,8 +152,8 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
     dt = ro.dtype
     L = scene.lights.count
     rows = prim_rows if prim_rows is not None else build_prim_rows(scene)
-    with telemetry.sync("wave.ambient"):
-        ambient = torch.tensor(cfg.ambient, dtype=dt, device=dev)
+    if ambient is None:
+        ambient = ambient_tensor(cfg, dt, dev)
     lane = ((lane_ids.to(torch.int64) & 0xFFFFFFFF) if lane_ids is not None
             else (int(lane_base) + torch.arange(R, device=dev)) & 0xFFFFFFFF)
 
@@ -211,12 +229,12 @@ def radiance_wave(scene, cfg: RenderConfig, ro, rd, sx_all, sy_all,
 
 def dispatch_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt=0,
                   photon_map=None, lane_base=0, lane_ids=None,
-                  prim_rows=None, route=None):
+                  prim_rows=None, route=None, ambient=None):
     """Render-path wave down ``route`` (``routes.wave``'s, decided anew when
-    None): the megakernel or the staged ``radiance_wave``.  On K1's route
-    a wave whose inputs carry a gradient is refused on either device (K1
-    is forward-only), and CPU tensors take the staged wave, K1's plain
-    version, on the same lanes.  Returns (radiance (R,3), (n_closest,
+    None): the megakernel or the staged ``radiance_wave``, handed
+    ``ambient``.  On K1's route a wave whose inputs carry a gradient is
+    refused on either device (K1 is forward-only), and CPU tensors take
+    the staged wave, K1's plain version, on the same lanes.  Returns (radiance (R,3), (n_closest,
     n_shadow))."""
     route = route or routes.wave(scene, cfg)[0]
     if route == "staged" and cfg.integrator == "mega":
@@ -233,7 +251,8 @@ def dispatch_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt=0,
             _cuda.plain_calls["megakernel"] += 1
         return radiance_wave(scene, cfg, ro, rd, sx_all, sy_all, wave_salt,
                              photon_map, lane_base=lane_base,
-                             lane_ids=lane_ids, prim_rows=prim_rows)
+                             lane_ids=lane_ids, prim_rows=prim_rows,
+                             ambient=ambient)
     lane = (lane_ids if lane_ids is not None
             else (int(lane_base) + torch.arange(ro.shape[0], device=ro.device))
             & 0xFFFFFFFF)
@@ -265,11 +284,45 @@ def _caustic_fold(photon_map, cfg, rec):
     return (wts * est).reshape(R, D, 3).sum(1)
 
 
+class WaveGraph:
+    """The staged ``radiance_wave`` over a band's full lane count as one
+    CUDA graph (``routes.wave_graph``'s ``"replay"``).  The capture records
+    the wave's operations and runs none of them.  Each call copies that
+    wave's inputs (rays, bounce samples, lane ids) into the graph's static
+    buffers, replays it and copies the radiance and the two counters out:
+    the graph holds no result across waves.  ``wave``, the function
+    captured, is kept with the tensors its closure holds, which every
+    replay reads by address."""
+
+    def __init__(self, wave, ro, rd, sx_all, sy_all, lane):
+        self.wave = wave
+        self.inputs = [t.clone() for t in (ro, rd, sx_all, sy_all, lane)]
+        self.graph = torch.cuda.CUDAGraph()
+        before = _cuda.launches.copy()
+        # the capture synchronises the card before it starts
+        with telemetry.sync("wave.graph"), telemetry.muted(), \
+                torch.cuda.graph(self.graph):
+            self.out = wave(*self.inputs)
+        # the wrappers counted the launches the capture recorded: each
+        # replay makes them
+        self.launches = _cuda.launches - before
+        _cuda.launches.subtract(self.launches)
+
+    def __call__(self, ro, rd, sx_all, sy_all, lane):
+        for dst, src in zip(self.inputs, (ro, rd, sx_all, sy_all, lane)):
+            dst.copy_(src)
+        self.graph.replay()
+        _cuda.launches.update(self.launches)
+        radiance, (n_c, n_s) = self.out
+        return radiance.clone(), (n_c.clone(), n_s.clone())
+
+
 class FrameRoutes(NamedTuple):
     """What a frame decides once (``Renderer.start``)."""
     wave: str                   # routes.wave's route
     inputs: str                 # routes.wave_inputs's
     cam: torch.Tensor | None    # the camera's constants on the kernel route
+    graph: str                  # routes.wave_graph's, for full-band waves
 
 
 class Renderer:
@@ -327,10 +380,12 @@ class Renderer:
                                and Hb % B == 0 and width % B == 0)
         # blocks traced by each wave of the last render (block-adaptive)
         self.wave_blocks: list = []
-        # the frame's routes (``start``), and the wave-inputs kernel's
-        # launch with the sampler and depth it was made for
+        # the frame's routes (``start``), the wave-inputs kernel's launch
+        # with the sampler and depth it was made for, and the full band's
+        # wave graph (``replay_wave``, kept by ``derived``)
         self._frame = None
         self._inputs_launch = None
+        self._graph = None
 
     @property
     def dtype(self):
@@ -341,6 +396,13 @@ class Renderer:
         renderer and built again after the scene's tensors change."""
         return derived(self, "_prim_rows", self.scene.table_sources(),
                        lambda: build_prim_rows(self.scene))
+
+    def ambient(self):
+        """``cfg.ambient`` as a tensor of the renderer's dtype and device,
+        kept on the renderer: the staged waves' (eager and replayed)."""
+        return derived(self, "_ambient", [self.cfg],
+                       lambda: ambient_tensor(self.cfg, self.dtype,
+                                              self.device))
 
     def _bounce_samples(self, idx_flat):
         """(D, R) sample pairs for every bounce: Halton dims 2+2d and 3+2d,
@@ -374,7 +436,14 @@ class Renderer:
             *c, shw, shh = ray_frame(self.camera, self.width, self.height,
                                      self.dtype, self.device)
             cam = torch.cat(c + [shw.reshape(1), shh.reshape(1)])
-        return FrameRoutes(routes.wave(self.scene, self.cfg)[0], inputs, cam)
+        wave = routes.wave(self.scene, self.cfg)[0]
+        pm = self.photon_map
+        graph = routes.wave_graph(
+            self.scene, wave, pm, self.device,
+            (self.scene.table_sources(), dataclass_tensors(self.scene.lights),
+             self.camera.pos, self.camera.look_at,
+             () if pm is None else (pm.pos, pm.dir, pm.col)))[0]
+        return FrameRoutes(wave, inputs, cam, graph)
 
     def halton_index(self, wave: int, pos=None):
         """The Halton indices of wave ``wave``'s lanes in block order, or at
@@ -426,6 +495,30 @@ class Renderer:
                                prim_rows=build_prim_rows(scene))
         return out[self._inv_perm_t]
 
+    def replay_wave(self, ro, rd, sx_all, sy_all, lane):
+        """The full band's staged wave by the renderer's CUDA graph
+        (``WaveGraph``), kept while the scene's tables and lights, the
+        prim-row table and the config are the same; else the wave runs
+        eagerly, which builds what the capture reads, and the graph is
+        captured after it.  ``lane``: the lane ids."""
+        scene, cfg, rows, amb = (self.scene, self.cfg, self.prim_rows(),
+                                 self.ambient())
+
+        def wave(ro, rd, sx_all, sy_all, lane):
+            return radiance_wave(scene, cfg, ro, rd, sx_all, sy_all, 0,
+                                 lane_ids=lane, prim_rows=rows, ambient=amb)
+
+        eager = []
+
+        def capture():
+            eager.append(wave(ro, rd, sx_all, sy_all, lane))
+            return WaveGraph(wave, ro, rd, sx_all, sy_all, lane)
+
+        g = derived(self, "_graph",
+                    [scene, cfg, rows, amb, *scene.table_sources(),
+                     *dataclass_tensors(scene.lights)], capture)
+        return eager[0] if eager else g(ro, rd, sx_all, sy_all, lane)
+
     def active_blocks(self, active):
         """Block-major indices (in the band) of the 16x16 blocks of
         ``active`` (Hb, W) that hold an active pixel."""
@@ -440,7 +533,10 @@ class Renderer:
         16x16 blocks as one dispatch, the image zero outside them.  Block
         b's lane j has lane id wave*N + lane0 + b*256 + j, as in the full
         frame.  ``frame``: the frame's routes (``frame_routes``, decided
-        anew when None)."""
+        anew when None).  A wave of the full band's lanes replays the
+        renderer's CUDA graph where the frame's ``graph`` allows it
+        (``replay_wave``); the ``wave.trace`` span names which in its
+        ``graph``."""
         frame = self.frame_routes() if frame is None else frame
         H, W = self.band_height, self.width
         base = wave * W * self.height + self._lane0
@@ -457,13 +553,21 @@ class Renderer:
                             torch.zeros((), dtype=torch.int64,
                                         device=self.device))
             ro, rd, sx_all, sy_all = self.wave_inputs(wave, pos, frame)
-        with telemetry.span("wave.trace", route=frame.wave):
-            lanes = ({"lane_base": base} if pos is None
-                     else {"lane_ids": (base + pos) & 0xFFFFFFFF})
-            out, (n_c, n_s) = dispatch_wave(
-                self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
-                self.photon_map, prim_rows=self.prim_rows(),
-                route=frame.wave, **lanes)
+        graph = frame.graph if ro.shape[0] == H * W else "eager"
+        with telemetry.span("wave.trace", route=frame.wave,
+                            graph=graph):
+            if graph == "replay":
+                lane = (base + (torch.arange(H * W, device=self.device)
+                                if pos is None else pos)) & 0xFFFFFFFF
+                out, (n_c, n_s) = self.replay_wave(ro, rd, sx_all, sy_all,
+                                                   lane)
+            else:
+                lanes = ({"lane_base": base} if pos is None
+                         else {"lane_ids": (base + pos) & 0xFFFFFFFF})
+                out, (n_c, n_s) = dispatch_wave(
+                    self.scene, self.cfg, ro, rd, sx_all, sy_all, 0,
+                    self.photon_map, prim_rows=self.prim_rows(),
+                    route=frame.wave, ambient=self.ambient(), **lanes)
             if pos is not None:
                 c[pos] = out.to(c.dtype)
                 out = c

@@ -111,6 +111,28 @@ def k1_refusal(scene, ro, rd, photon_map) -> list:
                  "the wave's inputs carry a gradient")
 
 
+def wave_graph(scene, route, photon_map, device, inputs=()) -> tuple:
+    """A frame's issue of its full-band waves: ``"replay"``, one CUDA graph
+    of the staged wave over the renderer's full band, captured once and
+    replayed (``render.integrator.WaveGraph``), or ``"eager"``, its
+    operations issued one by one.  A captured wave may not wait for the
+    host or copy host numbers to the card, and runs no Python when
+    replayed.  ``route`` is ``wave``'s; ``inputs``: the tensors a gradient
+    could come through.  Decided once a frame (``Renderer.start``); a
+    wave of fewer lanes than the band's is eager whatever this says (an
+    adaptive frame's block counts repeat only where the same frame is
+    rendered again)."""
+    why = [] if route == "staged" else [f"the {route} route"]
+    why += _on_card(device) + _grad(_wants_grad(*inputs),
+                                    "the wave's inputs carry a gradient")
+    if scene.has_fog:
+        why.append("fog: the march reads fog.lanes on the host")
+    if photon_map is not None:
+        why.append("a photon map: K3's work and totals are counted in "
+                   "Python")
+    return ("eager" if why else "replay"), why
+
+
 def wave_inputs(cfg, device, sampler, camera) -> tuple:
     """A wave's Halton dims and primary rays: ``"kernel"``
     (``ops.cuda_wave_inputs``) or ``"torch"``."""

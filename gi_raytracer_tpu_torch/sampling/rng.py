@@ -53,16 +53,18 @@ def u32(x, device=None) -> torch.Tensor:
     return x.to(torch.int64) & M32
 
 
-def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2**32 for a in [0, 2**32) and a constant c."""
+def mul32(a, c: int):
+    """(a * c) mod 2**32 for a in [0, 2**32) (an int64 tensor or a Python
+    int) and a constant c."""
     c &= M32
     lo = (a & 0xFFFF) * c
     hi = (((a >> 16) * c) & 0xFFFF) << 16
     return (lo + hi) & M32
 
 
-def _mix(h: torch.Tensor) -> torch.Tensor:
-    """Final avalanche of murmur3 on uint32."""
+def _mix(h):
+    """Final avalanche of murmur3 on uint32 (an int64 tensor or a Python
+    int)."""
     h = h ^ (h >> 16)
     h = mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
@@ -71,13 +73,28 @@ def _mix(h: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _host(x) -> bool:
+    return isinstance(x, (int, np.integer))
+
+
 def hash_bits(a, b, c=0) -> torch.Tensor:
-    """The uint32 hash behind :func:`hash_u01` (int64 in [0, 2**32))."""
+    """The uint32 hash behind :func:`hash_u01` (int64 in [0, 2**32)).
+
+    Integer arguments are folded on the host with uint32 semantics (the
+    same bits): ``_mix(c)`` where ``c`` is an int, and the whole
+    ``_mix(((b + C) & M32) ^ _mix(c))`` where ``b`` is one too.  They
+    enter the tensor arithmetic as one scalar, so such a call copies
+    nothing to the card and waits for nothing.  Without a tensor argument
+    the result is a CPU tensor."""
     dev = next((x.device for x in (a, b, c) if isinstance(x, torch.Tensor)),
                None)
-    a, b, c = u32(a, dev), u32(b, dev), u32(c, dev)
-    return _mix(mul32(a, 0x9E3779B9)
-                ^ _mix(((b + 0x7F4A7C15) & M32) ^ _mix(c)))
+
+    def word(x):
+        return int(x) & M32 if _host(x) else u32(x, dev)
+
+    bc = _mix(((word(b) + 0x7F4A7C15) & M32) ^ _mix(word(c)))
+    h = _mix(mul32(word(a), 0x9E3779B9) ^ bc)
+    return h if isinstance(h, torch.Tensor) else torch.tensor(h)
 
 
 def bits_to_u01(h: torch.Tensor) -> torch.Tensor:

@@ -42,8 +42,9 @@ def derived(owner, name: str, sources, build):
     read (float32 copies, packed rows, boxes) are derived from tensors
     that a caller may replace or update in place (an optimizer step on a
     scene or map leaf), so the table is built again whenever a tensor of
-    ``sources`` is another object or its version counter moved."""
-    key = [(t, t._version) for t in sources]
+    ``sources`` is another object or its version counter moved.  Other
+    sources (a scene, a config) count by identity alone."""
+    key = [(x, getattr(x, "_version", None)) for x in sources]
     kept = owner.__dict__.get(name)
     if kept is not None and len(kept[0]) == len(key) and all(
             a is b and va == vb for (a, va), (b, vb) in zip(kept[0], key)):

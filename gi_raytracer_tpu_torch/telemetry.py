@@ -12,7 +12,7 @@ enabled (``torch.profiler.profile`` of any activity), or a span that was
 recorded is still open (a child then records too, on whichever thread
 runs it: autograd runs a CUDA backward on a thread of its own). There is
 no other switch: a run that profiles nothing records nothing, and a span
-then costs one check.
+then costs one check; :func:`muted` turns recording off for a block.
 
 Spans never enter the profiler's event stream (no ``record_function``, no
 NVTX), so a device trace is the same with and without them.  Their
@@ -26,7 +26,9 @@ Each record holds its name, start and end in ns, its id, its parent's id
 spans of one job share it), and the attributes it was given, host-known
 ints only but the ``route`` of a ``photons.round``, ``wave.trace`` or
 ``wave.inputs`` span (the decision of ``routes`` that chose its code:
-``photon_round``, ``wave``, ``wave_inputs``).  A ``wave`` span's
+``photon_round``, ``wave``, ``wave_inputs``) and the ``graph`` of a
+``wave.trace`` span (``"replay"`` or ``"eager"``, ``routes.wave_graph``:
+whether the wave was one CUDA graph's replay).  A ``wave`` span's
 ``blocks`` and ``lanes`` count the 16x16 blocks and the lanes it traced; a ``trace.analytic`` span's ``lanes`` and
 ``prims`` the rays and the spheres and cones its passes test.  Records are
 kept in memory: :func:`records` and :func:`reset`.
@@ -75,6 +77,7 @@ class _Recorder:
         self.open: list = []
         self.next_id = 0
         self.k3 = None
+        self.muted = 0
 
 
 _rec = _Recorder()
@@ -112,9 +115,21 @@ def span(name: str, **attrs):
     """A context manager that records the block as span ``name`` with
     ``attrs`` while recording (it yields the ``Span``), and does nothing
     otherwise (it yields None)."""
-    if _rec.open or _profiling():
+    if not _rec.muted and (_rec.open or _profiling()):
         return _Recording(name, attrs)
     return _OFF
+
+
+@contextlib.contextmanager
+def muted():
+    """Record nothing inside the block, under a profiler or not: the code
+    there issues no work (a CUDA graph's capture), so a span would time
+    nothing."""
+    _rec.muted += 1
+    try:
+        yield
+    finally:
+        _rec.muted -= 1
 
 
 def sync(site: str):
@@ -173,10 +188,11 @@ def self_ns(spans) -> dict:
 
 
 def label(sp) -> str:
-    """A span's row in the tables: its name, and its ``route`` in
-    brackets where it has one (``photons.round[k2]``)."""
-    route = sp.attrs.get("route")
-    return sp.name if route is None else f"{sp.name}[{route}]"
+    """A span's row in the tables: its name, and its ``route`` and
+    ``graph`` in brackets where it has them (``photons.round[k2]``,
+    ``wave.trace[staged, replay]``)."""
+    tags = [sp.attrs[k] for k in ("route", "graph") if k in sp.attrs]
+    return f"{sp.name}[{', '.join(tags)}]" if tags else sp.name
 
 
 def summary(spans) -> dict:

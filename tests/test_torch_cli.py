@@ -168,12 +168,12 @@ def test_cli_render_profile_writes_a_trace(scene_dir, capsys, monkeypatch):
     assert len(inside) > len(ops) // 2
     # the table: each span's count and self time; the CPU has no device
     # events to put idle gaps down to
-    rows = dict(re.findall(r"\[profile\] (\S+) +(\d+) +[\d.]+ +[\d.]+\n",
-                           log))
+    rows = dict(re.findall(
+        r"\[profile\] (\S+(?:, \S+)?) +(\d+) +[\d.]+ +[\d.]+\n", log))
     assert rows["frame"] == "1" and rows["wave"] == str(len(waves))
-    # the scene's spheres and cone take the staged wave, and every closest
-    # hit and shadow ray of it the analytic passes
-    assert rows["wave.trace[staged]"] == rows["wave"]
+    # the scene's spheres and cone take the staged wave, op by op on the
+    # CPU, and every closest hit and shadow ray of it the analytic passes
+    assert rows["wave.trace[staged, eager]"] == rows["wave"]
     assert int(rows["trace.analytic"]) > 0
     # an adaptive frame's wave sets up twice: its active blocks, its
     # inputs; on the CPU by torch code

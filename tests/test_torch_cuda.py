@@ -1406,3 +1406,146 @@ def test_wave_inputs_kernel_once_a_wave(dev, scene):
     n = _cuda.launches["wave_inputs"]
     ro, rd, _, _ = r.wave_inputs(0)
     assert _cuda.launches["wave_inputs"] == n and rd.requires_grad
+
+
+# ---- the full band's wave as one CUDA graph (Renderer.replay_wave) ---------
+
+def _terrain_renderer(dev, size=64, **cfg):
+    """A 28,322-triangle terrain (past K2's rows: K4) at 2 spp, depth 3."""
+    ter = terrain_scene(SceneBuilder, 120).build(device=dev)
+    assert routes.trace(ter)[0] == "k4"
+    return Renderer(ter, Camera(pos=(0.0, 18.0, -30.0),
+                                look_at=(0.0, 0.0, 0.0)),
+                    RenderConfig(**dict(dict(
+                        adaptive=False, min_samples=2, max_samples=2,
+                        max_depth=3, seed=5), **cfg)),
+                    size, size)
+
+
+def _replay_equals_eager(r, wave):
+    """``r.replay_wave`` on wave ``wave``'s inputs against the eager staged
+    ``radiance_wave`` on the same lanes: radiance bit for bit, both
+    counters equal.  Returns the radiance."""
+    N = r.band_height * r.width
+    ro, rd, sx, sy = r.wave_inputs(wave)
+    lane = (wave * N + torch.arange(N, device=r.device)) & 0xFFFFFFFF
+    got, (gc, gs) = r.replay_wave(ro, rd, sx, sy, lane)
+    want, (wc, ws) = radiance_wave(r.scene, r.cfg, ro, rd, sx, sy, 0,
+                                   r.photon_map, lane_base=wave * N,
+                                   prim_rows=r.prim_rows())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), wave
+    assert int(gc) == int(wc) > 0 and int(gs) == int(ws) > 0, wave
+    return got
+
+
+def test_wave_graph_replay_matches_eager_on_k4(dev):
+    """The terrain's full band: the first wave runs eagerly and captures
+    the graph, the next two replay it with other lane ids; each equals the
+    eager wave on its lanes, and the two replays differ (the graph holds
+    no result)."""
+    r = _terrain_renderer(dev)
+    _replay_equals_eager(r, 0)
+    g = r._graph
+    assert g is not None
+    a = _replay_equals_eager(r, 1)
+    b = _replay_equals_eager(r, 2)
+    assert r._graph is g and not torch.equal(a, b)
+
+
+def test_wave_graph_replay_matches_eager_on_the_analytic_box(dev):
+    """The analytic box (spheres, a cone, an image texture): the analytic
+    passes inside the graph, two replays.  With a photon map the frame
+    refuses the graph (K3's work is counted in Python), and its frames
+    run eagerly."""
+    box = cornell_box(SceneBuilder, meshgen, False,
+                      analytic=True).build(device=dev)
+    cfg = RenderConfig(adaptive=False, min_samples=3, max_samples=3,
+                       max_depth=4, knn_k=32, photons=65_536,
+                       ray_chunk=65_536, seed=7)
+    cam = Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT)
+    r = Renderer(box, cam, cfg, 64, 64)
+    f = r.frame_routes()
+    assert (f.wave, f.graph) == ("staged", "replay")
+    _replay_equals_eager(r, 0)
+    g = r._graph
+    _replay_equals_eager(r, 1)
+    _replay_equals_eager(r, 2)
+    assert r._graph is g
+    batch = trace_photons(box, cfg)
+    pm = build_photon_map(batch, box.world_min.cpu().numpy(),
+                          box.world_max.cpu().numpy())
+    rm = Renderer(box, cam, cfg, 64, 64, photon_map=pm)
+    f = rm.frame_routes()
+    assert (f.wave, f.graph) == ("staged", "eager")
+    rm.render()
+    assert rm._graph is None
+
+
+def test_wave_graph_frames_equal_eager_frames(dev, monkeypatch):
+    """Frames of replayed waves equal the frames of the same renderer's
+    eager waves bit for bit, under an ambient light (every miss lane reads
+    the ambient tensor the graph was captured with, long after the frame
+    that made it ended), frame after frame."""
+    amb = (0.25, 0.5, 0.125)
+    r = _terrain_renderer(dev, ambient=amb)
+    frames = [r.render() for _ in range(3)]
+    assert r._graph is not None
+    torch.cuda.empty_cache()
+    frames.append(r.render())
+    monkeypatch.setattr(routes, "wave_graph",
+                        lambda *a, **k: ("eager", ["off for the test"]))
+    want = _terrain_renderer(dev, ambient=amb).render()
+    for got in frames:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_wave_graph_follows_an_in_place_scene_update(dev):
+    """After an in-place update of the scene's vertices the next wave runs
+    eagerly on the rebuilt tables and captures anew, and the replay after
+    it equals the eager wave of the updated scene."""
+    r = _terrain_renderer(dev)
+    _replay_equals_eager(r, 0)
+    _replay_equals_eager(r, 1)
+    g = r._graph
+    with torch.no_grad():
+        r.scene.tris.v0[:, 1] += 0.25
+    _replay_equals_eager(r, 1)
+    assert r._graph is not g and r._graph is not None
+    _replay_equals_eager(r, 0)
+
+
+def test_wave_graph_frame_spans_and_syncs(dev):
+    """A frame's staged waves under a profiler: every full-band wave
+    replays (``wave.trace``'s ``graph``), a block wave of fewer lanes runs
+    eagerly, the frame's syncs are its camera's and its ``frame.active``
+    reads (the ambient tensor is the renderer's, made by the first
+    frame), and the replays' kernels are in the device trace one by
+    one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    r = _terrain_renderer(dev)
+    r.render()                  # the first wave captures the graph
+    torch.cuda.synchronize(dev)
+    telemetry.reset()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r.render()
+        torch.cuda.synchronize(dev)
+        r.block_wave(5, torch.arange(3, device=dev) * 2)
+        torch.cuda.synchronize(dev)
+    recs = telemetry.records()
+    telemetry.reset()
+    assert [(sp.attrs["route"], sp.attrs["graph"]) for sp in recs
+            if sp.name == "wave.trace"] == [("staged", "replay")] * 2 + [
+        ("staged", "eager")]
+    frame_id = next(sp.id for sp in recs if sp.name == "frame")
+    sites = sorted(sp.attrs["site"] for sp in recs
+                   if sp.name == "sync" and sp.root == frame_id)
+    assert sites == sorted(["camera.pos", "camera.look_at", "camera.up",
+                            "camera.diag", "frame.active",
+                            "frame.active"]), sites
+    walks = [n for n, _, _ in _device_events(prof) if "gi_walk_kernel" in n]
+    # each wave: a closest hit and a shadow ray a bounce, on K4
+    assert _cuda.launches["stream"] == 3 * 2 * 3
+    assert len(walks) == _cuda.launches["stream"], len(walks)

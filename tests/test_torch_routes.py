@@ -185,14 +185,15 @@ def test_a_camera_gradient_counts_only_under_grad_mode():
 def test_cpu_render_decides_its_routes_once_a_frame(built):
     """A CPU render's ``wave.inputs`` spans carry ``route="torch"`` and its
     ``wave.trace`` spans ``"k1"`` (the staged wave standing in for K1);
-    the frame keeps no camera constants (they are the kernel route's), and
-    the set-up equals the plain version's."""
+    the frame keeps no camera constants (they are the kernel route's) and
+    issues its waves eagerly (no CUDA graph on the CPU), and the set-up
+    equals the plain version's."""
     box = built("small")
     cfg = RenderConfig(adaptive=False, min_samples=2, max_samples=2,
                        max_depth=2)
     r = Renderer(box, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT), cfg,
                  16, 16)
-    assert r.frame_routes() == ("k1", "torch", None)
+    assert r.frame_routes() == ("k1", "torch", None, "eager")
     telemetry.reset()
     try:
         with profile(activities=[ProfilerActivity.CPU]):
@@ -204,11 +205,155 @@ def test_cpu_render_decides_its_routes_once_a_frame(built):
             if sp.name == "wave.inputs"] == ["torch", "torch"]
     assert [sp.attrs.get("route") for sp in spans
             if sp.name == "wave.trace"] == ["k1", "k1"]
-    assert r._frame == ("k1", "torch", None)
+    assert r._frame == ("k1", "torch", None, "eager")
     ro, rd, sx, sy = r.wave_inputs(1)
     for a, b in zip((ro, rd, sx, sy),
                     r.wave_inputs_plain(r.halton_index(1))):
         assert torch.equal(a, b)
+
+
+# ---- the wave's issue: one CUDA graph or op by op -------------------------
+
+def _graph_case(scene=None, route="staged", pm=None, device=CARD,
+                inputs=()):
+    return routes.wave_graph(scene or _scene(), route, pm, device, inputs)
+
+
+MAP = types.SimpleNamespace(pos=F32, dir=F32, col=F32)
+
+
+@pytest.mark.parametrize("kw, why", [
+    ({}, None),
+    ({"pm": MAP}, "a photon map: K3's work and totals are counted in "
+                  "Python"),
+    ({"route": "k1"}, "the k1 route"),
+    ({"device": torch.device("cpu")}, "tensors on cpu, not the card"),
+    ({"inputs": (torch.zeros(3, requires_grad=True),)},
+     "the wave's inputs carry a gradient: autograd must see the "
+     "operations"),
+    ({"scene": _scene(has_fog=True)},
+     "fog: the march reads fog.lanes on the host")],
+    ids=["full_band", "with_a_map", "k1", "cpu", "grad", "fog"])
+def test_wave_graph_route_names_each_reason(kw, why):
+    """A frame of staged waves on the card replays the graph; each
+    condition alone makes it eager, and the reason names it."""
+    assert _graph_case(**kw) == (("replay", []) if why is None
+                                 else ("eager", [why]))
+
+
+def test_wave_graph_counts_a_gradient_only_under_grad_mode():
+    leaf = [torch.zeros(3, requires_grad=True)]
+    assert _graph_case(inputs=(leaf,))[0] == "eager"
+    with torch.no_grad():
+        assert _graph_case(inputs=(leaf,)) == ("replay", [])
+
+
+def test_block_wave_replays_only_the_full_band(built, monkeypatch):
+    """Where the frame's ``graph`` is ``"replay"``, a wave of the band's
+    full lanes goes to ``replay_wave`` and a block wave of fewer lanes
+    runs eagerly; each ``wave.trace`` span names which.  (On the CPU the
+    frame never replays: the decision is forced here and ``replay_wave``
+    stood in by the eager wave on the same lane ids.)"""
+    from gi_raytracer_tpu_torch.render.integrator import radiance_wave
+    box = built("small")
+    cfg = RenderConfig(adaptive=False, min_samples=1, max_samples=1,
+                       max_depth=2, integrator="staged")
+    r = Renderer(box, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT), cfg,
+                 32, 32)
+    frame = r.frame_routes()._replace(graph="replay")
+    replayed = []
+
+    def replay(ro, rd, sx, sy, lane):
+        replayed.append(ro.shape[0])
+        return radiance_wave(box, cfg, ro, rd, sx, sy, 0, lane_ids=lane,
+                             prim_rows=r.prim_rows())
+
+    monkeypatch.setattr(r, "replay_wave", replay)
+    telemetry.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            full, _ = r.block_wave(0, None, frame)
+            part, _ = r.block_wave(0, torch.tensor([1]), frame)
+        spans = [sp for sp in telemetry.records() if sp.name == "wave.trace"]
+    finally:
+        telemetry.reset()
+    assert replayed == [32 * 32]
+    assert [sp.attrs["graph"] for sp in spans] == ["replay", "eager"]
+    want, _ = r.block_wave(0, None, r.frame_routes())
+    assert torch.equal(full, want)
+    # block 1 (block-major) is the band's rows 0-15, columns 16-31
+    assert torch.equal(part[:16, 16:], want[:16, 16:])
+
+
+def test_cpu_render_names_each_waves_issue(built):
+    """A CPU render's ``wave.trace`` spans carry ``graph="eager"``, and
+    the profile's rows name route and issue."""
+    r = Renderer(built("analytic"), Camera(pos=CAMERA_POS,
+                                           look_at=CAMERA_LOOK_AT),
+                 RenderConfig(adaptive=False, min_samples=2, max_samples=2,
+                              max_depth=2), 16, 16)
+    telemetry.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            r.render()
+        spans = [sp for sp in telemetry.records() if sp.name == "wave.trace"]
+    finally:
+        telemetry.reset()
+    assert [telemetry.label(sp) for sp in spans] == [
+        "wave.trace[staged, eager]"] * 2
+    assert r._graph is None
+
+
+def test_staged_wave_with_an_ambient_tensor_records_no_sync(built):
+    """The staged wave on a triangle box, handed its ambient tensor, waits
+    for nothing: under a profiler it records no ``sync`` span (the hash's
+    integer keys are folded on the host), and it equals the wave that
+    makes its own."""
+    from gi_raytracer_tpu_torch.render.integrator import (ambient_tensor,
+                                                          radiance_wave)
+    box = built("small")
+    cfg = RenderConfig(adaptive=False, min_samples=1, max_samples=1,
+                       max_depth=3, ambient=(0.1, 0.2, 0.3))
+    r = Renderer(box, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT), cfg,
+                 16, 16)
+    inputs = r.wave_inputs(0)
+    amb = ambient_tensor(cfg, torch.float32, box.device)
+    telemetry.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got, counts = radiance_wave(box, cfg, *inputs, 0, None,
+                                        lane_base=256, ambient=amb)
+        recs = telemetry.records()
+    finally:
+        telemetry.reset()
+    assert [sp.attrs["site"] for sp in recs if sp.name == "sync"] == []
+    want, wcounts = radiance_wave(box, cfg, *inputs, 0, None, lane_base=256)
+    assert torch.equal(got, want)
+    assert [int(c) for c in counts] == [int(c) for c in wcounts]
+
+
+def test_renderer_keeps_its_ambient_tensor(built):
+    """The staged waves' ambient tensor is made once a renderer: a second
+    frame records no ``wave.ambient`` sync, and a new config makes it
+    anew with the new values."""
+    cfg = RenderConfig(adaptive=False, min_samples=1, max_samples=1,
+                       max_depth=2, integrator="staged",
+                       ambient=(0.1, 0.2, 0.3))
+    r = Renderer(built("small"), Camera(pos=CAMERA_POS,
+                                        look_at=CAMERA_LOOK_AT), cfg, 16, 16)
+    r.render()
+    amb = r.ambient()
+    telemetry.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            r.render()
+        sites = [sp.attrs["site"] for sp in telemetry.records()
+                 if sp.name == "sync"]
+    finally:
+        telemetry.reset()
+    assert "wave.ambient" not in sites and r.ambient() is amb
+    r.cfg = cfg.replace(ambient=(0.5, 0.5, 0.5))
+    assert r.ambient().tolist() == [0.5, 0.5, 0.5]
 
 
 # ---- the photon round -----------------------------------------------------

@@ -41,6 +41,68 @@ def test_hash_u01_bit_equal():
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
+# ints with the high bit set (the decision tag, salts past 2**31), zero and
+# the largest, negative int32 bit patterns
+KEYS = [0, 1, 31337 * 7, 0x80000000 ^ 3, 0xFFFFFFFF, -5, np.uint32(0x9E3779B9)]
+
+
+@pytest.mark.parametrize("b", KEYS + [None],
+                         ids=[f"b{i}" for i in range(len(KEYS))] + ["b_tensor"])
+def test_hash_u01_folds_int_keys(b):
+    """``hash_bits``/``hash_u01`` with int ``b`` and ``c`` (the staged
+    wave's decisions) and with int ``c`` alone (a tensor ``b``: the
+    analytic passes) are bit-equal to the same call on tensors and to the
+    JAX ``hash_u01``."""
+    rng = np.random.default_rng(1)
+    a = _u32(rng, 4096)
+    a[:64] |= np.uint32(0x80000000)
+    bt = _u32(rng, 4096) if b is None else None
+    for c in KEYS:
+        bj = bt if b is None else np.full(4096, np.uint32(int(b) & 0xFFFFFFFF))
+        cj = np.full(4096, np.uint32(int(c) & 0xFFFFFFFF))
+        want = np.asarray(jrng.hash_u01(a, bj, cj))
+        bb = _t(bt) if b is None else b
+        got = trng.hash_u01(_t(a), bb, c).numpy()
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), c
+        assert torch.equal(trng.hash_bits(_t(a), bb, c),
+                           trng.hash_bits(_t(a), _t(bj), _t(cj)))
+
+
+def test_hash_of_ints_alone_stays_a_cpu_tensor():
+    """Without a tensor argument the hash is a CPU scalar tensor, equal to
+    the one-element call on tensors."""
+    for a, b, c in ((3, 0x80000001, 99), (0xFFFFFFFF, -1, 0x80000000)):
+        got = trng.hash_bits(a, b, c)
+        assert got.device.type == "cpu" and got.shape == ()
+        want = trng.hash_bits(*(torch.tensor([x & 0xFFFFFFFF])
+                                for x in (a, b, c)))
+        assert int(got) == int(want[0])
+
+
+def test_hash_with_int_keys_records_no_sync():
+    """Under a profiler calls with int keys record no ``rng.u32`` sync
+    span (nothing is copied to the device); an array key is still copied
+    and marks it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    a = torch.arange(64, dtype=torch.int64)
+    telemetry.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            trng.hash_u01(a, 0x80000000 ^ 3, 31337)
+            trng.hash_u01(a, a + 1, 0x80000000)
+            trng.hash_u01(7, a, 5)
+            n_folded = len(telemetry.records())
+            trng.hash_u01(a, np.arange(64), 5)
+        sites = [sp.attrs["site"] for sp in telemetry.records()
+                 if sp.name == "sync"]
+    finally:
+        telemetry.reset()
+    assert n_folded == 0
+    assert sites == ["rng.u32"]
+
+
 @pytest.mark.parametrize("dim", list(range(18)) + [31, 47, 100, 200, 255])
 def test_halton_sample_bit_equal(samplers, dim):
     js, ts = samplers

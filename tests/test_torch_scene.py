@@ -93,3 +93,24 @@ def test_scene_moves_between_devices():
     moved = ts.to("cpu")
     assert moved is not ts and moved.all_opaque == ts.all_opaque
     assert torch.equal(moved.tris.v0, ts.tris.v0)
+
+
+def test_derived_keys_tensors_by_version_and_objects_by_identity():
+    """``types.derived`` builds again after a tensor source is replaced or
+    updated in place, or an object source (no version) is another object,
+    and keeps its value otherwise."""
+    from types import SimpleNamespace
+
+    from gi_raytracer_tpu_torch.scene.types import derived
+    owner, t, cfg = SimpleNamespace(), torch.zeros(3), object()
+    builds = []
+
+    def get(*sources):
+        return derived(owner, "_kept", sources,
+                       lambda: builds.append(1) or len(builds))
+
+    assert get(t, cfg) == get(t, cfg) == 1
+    t += 1
+    assert get(t, cfg) == 2
+    assert get(t, object()) == 3
+    assert get(t.clone(), cfg) == 4
