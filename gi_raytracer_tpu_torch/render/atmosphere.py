@@ -90,10 +90,16 @@ def _lane_ids(ro, ray_id):
 
 
 def _march(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
-           ray_id=None):
+           ray_id=None, use="scatter"):
     """First stochastic scattering event along [tmin, tmax], in blocks of
     steps over the lanes still marching.  ``ray_id``: the global lane ids
-    keying the scatter draws.  Returns (scattered (R,), t_hit (R,))."""
+    keying the scatter draws.  Returns (scattered (R,), t_hit (R,)).
+
+    The march is one ``fog.march`` span: its ``use`` (``"shadow"`` or
+    ``"scatter"``), the ``lanes`` entering it, the ``blocks`` it ran and
+    its ``lane_steps`` (each block's lanes times its steps, summed), all
+    sizes the host holds; a block waits for the host five times, each a
+    ``fog.block`` sync."""
     R = ro.shape[0]
     dev = ro.device
     rid = _lane_ids(ro, ray_id)
@@ -101,24 +107,37 @@ def _march(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
     found = torch.zeros(R, dtype=torch.bool, device=dev)
     t_hit = torch.zeros(R, dtype=ro.dtype, device=dev)
     n_steps = int(cfg.raymarch_max_steps)
-    with telemetry.sync("fog.lanes"):
-        lanes = torch.nonzero(has & (t0 < tmax)).squeeze(1)
-    for i0 in range(0, n_steps, MARCH_BLOCK):
-        if not lanes.numel():
-            break
-        i = torch.arange(i0, min(i0 + MARCH_BLOCK, n_steps), device=dev)
-        t = t0[lanes, None] + _step_offsets(cfg, i, ro.dtype)[None, :]
-        p = ro[lanes, None, :] + t[..., None] * rd[lanes, None, :]
-        u = hash_u01(rid[lanes, None], i[None, :], salt)
-        scat = (t < tmax[lanes, None]) & (u < fog_density(scene, p))
-        hit_any = scat.any(1)
-        first = torch.argmax(scat.to(torch.uint8), dim=1)
-        won = lanes[hit_any]
-        found[won] = True
-        t_hit[won] = t[hit_any, first[hit_any]]
-        # lanes go on while unscattered with a step left before tmax
-        t_next = t0[lanes] + _step_offsets(cfg, i[-1:] + 1, ro.dtype)
-        lanes = lanes[~hit_any & (t_next < tmax[lanes])]
+    with telemetry.span("fog.march", use=use) as sp:
+        with telemetry.sync("fog.lanes"):
+            lanes = torch.nonzero(has & (t0 < tmax)).squeeze(1)
+        entering, blocks, lane_steps = lanes.numel(), 0, 0
+        for i0 in range(0, n_steps, MARCH_BLOCK):
+            if not lanes.numel():
+                break
+            i = torch.arange(i0, min(i0 + MARCH_BLOCK, n_steps), device=dev)
+            blocks += 1
+            lane_steps += lanes.numel() * i.numel()
+            t = t0[lanes, None] + _step_offsets(cfg, i, ro.dtype)[None, :]
+            p = ro[lanes, None, :] + t[..., None] * rd[lanes, None, :]
+            u = hash_u01(rid[lanes, None], i[None, :], salt)
+            scat = (t < tmax[lanes, None]) & (u < fog_density(scene, p))
+            hit_any = scat.any(1)
+            first = torch.argmax(scat.to(torch.uint8), dim=1)
+            with telemetry.sync("fog.block"):
+                won = lanes[hit_any]
+            with telemetry.sync("fog.block"):
+                found[won] = True
+            with telemetry.sync("fog.block"):
+                step = first[hit_any]
+            with telemetry.sync("fog.block"):
+                t_hit[won] = t[hit_any, step]
+            # lanes go on while unscattered with a step left before tmax
+            t_next = t0[lanes] + _step_offsets(cfg, i[-1:] + 1, ro.dtype)
+            with telemetry.sync("fog.block"):
+                lanes = lanes[~hit_any & (t_next < tmax[lanes])]
+        if sp is not None:
+            sp.attrs.update(lanes=entering, blocks=blocks,
+                            lane_steps=lane_steps)
     return found, t_hit
 
 
@@ -150,7 +169,7 @@ def fog_occludes(scene, cfg: RenderConfig, ro, rd, t_lim, salt,
     if active is not None:
         has = has & active
     return _march(scene, cfg, ro, rd, tmin, tmax, has, salt,
-                  ray_id=ray_id)[0]
+                  ray_id=ray_id, use="shadow")[0]
 
 
 def fog_override(scene, cfg: RenderConfig, ro, rd, t_hit_surface, sx, sy,

@@ -1,8 +1,9 @@
 """The program's spans and counters, recorded while a torch profiler runs.
 
 A span is a block of host time at a layer boundary (a frame, a wave and
-its parts, a trace's analytic passes, a photon pass and its retry
-rounds, the photon grid, a K3 call, a train step, the kNN VJP); a sync
+its parts, a trace's analytic passes, a fog march, a photon pass and
+its retry rounds, the photon grid, a K3 call, a train step, the kNN
+VJP); a sync
 is a span named ``"sync"`` around one host sync, its ``site`` attribute
 naming the call site: one operation that waits for the card when its
 tensors are there (a read of a result, a ``nonzero``, a copy of host
@@ -28,10 +29,13 @@ ints only but the ``route`` of a ``photons.round``, ``wave.trace`` or
 ``wave.inputs`` span (the decision of ``routes`` that chose its code:
 ``photon_round``, ``wave``, ``wave_inputs``) and the ``graph`` of a
 ``wave.trace`` span (``"replay"`` or ``"eager"``, ``routes.wave_graph``:
-whether the wave was one CUDA graph's replay).  A ``wave`` span's
+whether the wave was one CUDA graph's replay) and the ``use`` of a
+``fog.march`` span (``"scatter"`` or ``"shadow"``).  A ``wave`` span's
 ``blocks`` and ``lanes`` count the 16x16 blocks and the lanes it traced; a ``trace.analytic`` span's ``lanes`` and
-``prims`` the rays and the spheres and cones its passes test.  Records are
-kept in memory: :func:`records` and :func:`reset`.
+``prims`` the rays and the spheres and cones its passes test; a
+``fog.march`` span's ``lanes``, ``blocks`` and ``lane_steps`` the lanes
+entering the march, its blocks of steps and their lanes times steps.
+Records are kept in memory: :func:`records` and :func:`reset`.
 
 K3's tier counts: while recording, the kNN kernel adds each launch's
 queued and taken counts to two 64-bit totals in pinned host memory

@@ -998,7 +998,8 @@ def chunk_map(dev, scene):
 def _sync_jobs(dev, scene, chunk_map):
     """The jobs of every cell's kind, small: a frame of the render_map
     traffic (K1, K3) and of the terrain's (staged wave, K4) at 64x64, a
-    photon chunk and its map, a train step at 32x32."""
+    photon chunk and its map, a train step at 32x32, and a frame of the
+    fog box (the fog march's waits) at 64x64."""
     from gi_raytracer_tpu_torch.train import TrainStep
 
     batch, pm = chunk_map
@@ -1017,10 +1018,18 @@ def _sync_jobs(dev, scene, chunk_map):
     wmax = scene.world_max.cpu().numpy()
     step = TrainStep(scene, cam, RenderConfig(seed=5), batch, size=32,
                      depth=8, photons=50_000)
+    fb = cornell_box(SceneBuilder, meshgen, True)
+    # the cell's fog, denser: lanes scatter in every block of the march
+    fb.add_height_fog((4.0, 3.4, 0.0), (16.0, 8.0, 8.4), (1.0, 1.0, 1.0),
+                      2.0, 0.5, 2)
+    r_fog = Renderer(fb.build(device=dev), cam,
+                     RenderConfig(min_samples=2, max_samples=2, max_depth=3,
+                                  ambient=(0.35, 0.35, 0.35), **base),
+                     64, 64)
     return {"render_map": r_map.render, "terrain": r_ter.render,
             "photon_chunk": lambda: build_photon_map(
                 trace_photons(scene, pcfg), wmin, wmax),
-            "train_step": step}
+            "train_step": step, "fog": r_fog.render}
 
 
 def test_telemetry_marks_every_sync(dev, scene, chunk_map):

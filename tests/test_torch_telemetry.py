@@ -168,6 +168,53 @@ def test_frame_spans_and_image_with_recording(small_box):
     assert sites.count("frame.active") == 2
 
 
+def test_fog_march_spans_count_the_steps_marched(monkeypatch):
+    """Each march of a fog frame is one ``fog.march`` span: its ``use``
+    names the caller, ``lanes`` the lanes entering, ``blocks`` the blocks
+    it ran and ``lane_steps`` the density points it evaluated (counted
+    here at ``fog_density``); a block's five host waits are ``fog.block``
+    syncs, and the image is bit-equal to the one made with recording
+    off."""
+    from gi_raytracer_tpu_torch.render import atmosphere
+
+    b = cornell_box(SceneBuilder, meshgen, False)
+    b.add_height_fog((4.0, 3.4, 0.0), (16.0, 8.0, 8.4), (1.0, 1.0, 1.0),
+                     2.0, 0.5, 2)
+    r = _renderer(b.build(device="cpu"), ambient=(0.35, 0.35, 0.35))
+    img, st = r.render(return_state=True)
+    seen, points = [], [0, 0]
+    march, density = atmosphere._march, atmosphere.fog_density
+
+    def counted_density(scene, p):
+        points[0] += p.numel() // 3
+        points[1] += 1
+        return density(scene, p)
+
+    def counted_march(scene, cfg, ro, rd, tmin, tmax, has, *a, **kw):
+        points[:] = [0, 0]
+        out = march(scene, cfg, ro, rd, tmin, tmax, has, *a, **kw)
+        entering = int((has & (tmin + cfg.shadow_bias < tmax)).sum())
+        seen.append((kw.get("use", "scatter"), entering, points[1],
+                     points[0]))
+        return out
+
+    monkeypatch.setattr(atmosphere, "fog_density", counted_density)
+    monkeypatch.setattr(atmosphere, "_march", counted_march)
+    img_on, st_on = _profiled(lambda: r.render(return_state=True))
+    assert torch.equal(img, img_on) and int(st["rays"]) == int(st_on["rays"])
+    spans = telemetry.records()
+    marches = [sp for sp in spans if sp.name == "fog.march"]
+    assert [(sp.attrs["use"], sp.attrs["lanes"], sp.attrs["blocks"],
+             sp.attrs["lane_steps"]) for sp in marches] == seen
+    # two waves of two bounces: a scattering march and a shadow march each
+    assert [u for u, *_ in seen] == ["scatter", "shadow"] * 4
+    assert sum(n for *_, n in seen) > 0
+    blocks = [sp for sp in spans if sp.name == "sync"
+              and sp.attrs["site"] == "fog.block"]
+    assert len(blocks) == 5 * sum(sp.attrs["blocks"] for sp in marches)
+    assert {sp.parent for sp in blocks} <= {sp.id for sp in marches}
+
+
 def test_ray_counter_is_exact_past_2_24(small_box):
     """The counter is int64: one ray added to 2^24 + 1 is not lost, as it
     would be in float32."""
