@@ -33,8 +33,10 @@ card at the paths' shapes:
 * phase D, fog Cornell: scripts/validate_golden.py's cornell_fog (the
   mesh box, heightFog 4 3.4 0 16 8 8.4 1 1 1 .05 .5 2, ambient 0.35),
   512x512, 4 spp, depth 6, no photons (the staged wave on K2 with the fog
-  march), which must differ visibly from the fog-free render; one
-  profiled render gives the march's share of the device time;
+  march kernel), which must differ visibly from the fog-free render; the
+  fog march kernel held bit for bit to the blocked torch march and the
+  step loop on wave 0's primary rays, timed beside them; one profiled
+  render gives the march's share of the device time;
 * the CLI: ``cli.main(["render", ...])`` on a scene with spheres, a cone
   and fog, 128x128 with 20,000 photon slots and a checkpoint, then again
   stopped after its first wave and resumed from that checkpoint: the PNG
@@ -267,6 +269,10 @@ OPS_PER_TEST = 41
 OPS_PER_SLAB = 27
 OPS_PER_CANDIDATE = 8      # K3: d^2 of one photon (3 sub, 3 mul, 2 add)
 WAVE_INPUT_CALLS = 50      # wave-inputs kernel calls timed in a row
+# the fog march kernel: about 70 float operations a lane-step (the step's
+# t and point, the trilinear density, its pow and falloff), timed in a row
+OPS_PER_FOG_STEP = 70
+FOG_MARCH_CALLS = 20
 
 
 def log(*args):
@@ -536,6 +542,65 @@ def wave_inputs_row(scene, cam):
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=None)
     return row
+
+
+def fog_march_row(fog, cam, cfg):
+    """The fog march kernel against its plain version (``_march``, the
+    blocked torch march) and the step loop on wave 0's primary rays of the
+    fog render (512x512, each marched to its closest hit): found and t_hit
+    bit-equal, the kernel's device ms a call (torch.profiler over
+    FOG_MARCH_CALLS calls), the plain version's CUDA-event ms, and the
+    bound of the lane-steps it counts (OPS_PER_FOG_STEP operations each).
+    Returns the kernels-table row."""
+    import torch
+    from gi_raytracer_tpu_torch import routes
+    from gi_raytracer_tpu_torch.ops import _cuda, cuda_fog, intersect
+    from gi_raytracer_tpu_torch.render import Renderer
+    from gi_raytracer_tpu_torch.render import atmosphere as atm
+    ro, rd, _, _ = Renderer(fog, cam, cfg, WIDTH, HEIGHT).wave_inputs(0)
+    hit = intersect.trace_closest(fog, ro, rd)
+    t_cap = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    tmin, tmax, has = atm._fog_bounds(fog, ro, rd, t_cap)
+    lane = torch.arange(ro.shape[0], device=ro.device)
+    args = (ro, rd, tmin, tmax, has, 31337)
+    require(routes.fog_march(fog, cfg, ro, rd) == ("kernel", []),
+            "fog march route")
+
+    def call():
+        return atm.march(fog, cfg, *args, ray_id=lane)
+
+    n0 = _cuda.launches["fog_march"]
+    got = call()
+    require(_cuda.launches["fog_march"] == n0 + 1, "one launch a march")
+    want = atm._march(fog, cfg, *args, ray_id=lane)
+    steps = atm._march_steps(fog, cfg, *args, ray_id=lane)
+    same = all(torch.equal(got[0], w[0]) and torch.equal(
+        got[1].view(torch.int32), w[1].view(torch.int32))
+        for w in (want, steps))
+    err = (got[1] - want[1]).abs().max().item()
+    counts = torch.zeros(3, dtype=torch.int64, pin_memory=True)
+    cuda_fog.march(fog.fog, ro, rd, tmin + cfg.shadow_bias, tmax, has, lane,
+                   31337, cfg.raymarch_stepsize, cfg.raymarch_max_steps,
+                   atm.MARCH_BLOCK, counts.data_ptr())
+    torch.cuda.synchronize()
+    lanes, lane_steps, blocks = counts.tolist()
+    device = profile(f"fog march, {FOG_MARCH_CALLS} calls",
+                     lambda: [call() for _ in range(FOG_MARCH_CALLS)],
+                     host=False)[0] / FOG_MARCH_CALLS
+    plain_ms = cuda_ms(lambda: atm._march(fog, cfg, *args, ray_id=lane), 3)
+    b_ms, b_by = bound(lane_steps * OPS_PER_FOG_STEP,
+                       ro.shape[0] * (24 + 4 + 4 + 1 + 8 + 5))
+    log(f"fog march {WIDTH}x{HEIGHT} primary rays: {lanes} lanes marching, "
+        f"{blocks} blocks, {lane_steps} lane-steps, scattered "
+        f"{int(got[0].sum())}; bit-equal {same} (largest t difference "
+        f"{err:.3e}); device ms a call (march and t_hit) {device:.4f}, "
+        f"plain ms {plain_ms:.3f}; bound ms {b_ms:.4f} ({b_by}); "
+        f"{json.dumps(cuda_fog.march_info(fog.fog.grid.shape))}")
+    require(same, "fog march bit-equal")
+    return dict(name="fog_march", route="cuda",
+                source="gi_raytracer_tpu_torch/csrc/fog.cu", replaces=None,
+                max_abs_err=err, ms=device, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def k3_queries(scene, cfg, cam):
@@ -2217,7 +2282,7 @@ def main(argv) -> int:
         return r, img
 
     with Phase("phase D: fog Cornell"):
-        r, img = drive("phase D", fog_path, need=("intersect",),
+        r, img = drive("phase D", fog_path, need=("intersect", "fog_march"),
                        absent=("megakernel", "stream", "knn"))
         require(torch.isfinite(img).all(), "finite fog image")
         img_c = Renderer(clear, cam, d_cfg, WIDTH, HEIGHT).render()
@@ -2225,9 +2290,11 @@ def main(argv) -> int:
         log(f"phase D mean |fog - no fog| {diff:.5f}")
         require(diff > FOG_MIN_DIFF, ("fog visible", diff))
         save_png(r, img, "fog_512.png")
+    with Phase("fog march"):
+        rows["fog_march"] = fog_march_row(fog, cam, d_cfg)
     # the march's share: its kernels' device time in the profile, and the
     # stream time between events around each march
-    march = atmosphere._march
+    march = atmosphere.march
     marks = []
 
     def timed_march(*a, **kw):
@@ -2240,12 +2307,12 @@ def main(argv) -> int:
         marks.append((e0, e1))
         return out
 
-    atmosphere._march = timed_march
+    atmosphere.march = timed_march
     try:
         busy, march_ms = profile("phase D fog render", r.render,
                                  span="fog_march")
     finally:
-        atmosphere._march = march
+        atmosphere.march = march
     torch.cuda.synchronize()
     stream_ms = sum(a.elapsed_time(b) for a, b in marks)
     log(f"phase D fog march: {len(marks)} marches, device ms {march_ms:.1f} "

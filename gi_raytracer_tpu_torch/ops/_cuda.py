@@ -41,10 +41,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
 KERNELS = ("intersect", "megakernel", "knn", "stream", "photon_round",
-           "wave_inputs")
+           "wave_inputs", "fog_march")
 
 _lib = None
 _VP, _F, _I, _U = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_uint
+_D, _LL = ctypes.c_double, ctypes.c_longlong
 
 # argtypes of every C entry point (csrc/*.cu); pointers and the stream are
 # c_void_p so ctypes never cuts them to 32 bits
@@ -65,6 +66,9 @@ _SIGNATURES = {
     "gi_photon_round_info": [_I, _VP],
     "gi_wave_inputs_launch": [_VP] * 4 + [_I, _VP, _I, _I, _U, _F, _F, _F,
                                           _F] + [_VP] * 5,
+    "gi_fog_march_launch": [_VP, _LL, _VP, _LL] + [_VP] * 4 + [_I, _U]
+    + [_VP] * 4 + [_I] * 3 + [_F] * 4 + [_D, _I, _I] + [_VP] * 5,
+    "gi_fog_march_info": [_I, _VP],
 }
 
 

@@ -7,21 +7,24 @@ in the fog's random grid.  The march takes fixed steps of
 at step i the ray scatters when ``hash_u01(ray id, i, salt)`` is below the
 local density, and the first scattering step wins.
 
-The JAX package runs the march as a loop of single steps.  Here it runs
-in blocks of ``MARCH_BLOCK`` steps as (lanes, steps) tensors, over the
-lanes that still march: a lane stops at its first scattering step, and
-the march ends when no lane has a step left before its ``tmax``.  The
-outcome is the same, since a later step can never take the place of an
-earlier one.  ``_march_steps`` is the step-by-step loop, the plain version
-the card tests hold the blocked march against.
+The JAX package runs the march as a loop of single steps.  :func:`march`
+takes the route ``routes.fog_march`` names: on the card one launch of the
+fog march kernel (``ops.cuda_fog``), a thread a lane walking to its first
+scattering step; elsewhere :func:`_march`, in blocks of ``MARCH_BLOCK``
+steps as (lanes, steps) tensors over the lanes that still march: a lane
+stops at its first scattering step, and the march ends when no lane has a
+step left before its ``tmax``.  The outcome is the same, since a later
+step can never take the place of an earlier one.  ``_march_steps`` is the
+step-by-step loop, the plain version the card tests hold both against.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import telemetry
+from .. import routes, telemetry
 from ..config import RenderConfig
+from ..ops import _cuda, cuda_fog
 from ..sampling.rng import hash_u01
 from .geom import random_unit_vec
 
@@ -100,6 +103,7 @@ def _march(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
     its ``lane_steps`` (each block's lanes times its steps, summed), all
     sizes the host holds; a block waits for the host five times, each a
     ``fog.block`` sync."""
+    _cuda.plain_calls["fog_march"] += 1
     R = ro.shape[0]
     dev = ro.device
     rid = _lane_ids(ro, ray_id)
@@ -107,7 +111,7 @@ def _march(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
     found = torch.zeros(R, dtype=torch.bool, device=dev)
     t_hit = torch.zeros(R, dtype=ro.dtype, device=dev)
     n_steps = int(cfg.raymarch_max_steps)
-    with telemetry.span("fog.march", use=use) as sp:
+    with telemetry.span("fog.march", use=use, route="torch") as sp:
         with telemetry.sync("fog.lanes"):
             lanes = torch.nonzero(has & (t0 < tmax)).squeeze(1)
         entering, blocks, lane_steps = lanes.numel(), 0, 0
@@ -141,6 +145,31 @@ def _march(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
     return found, t_hit
 
 
+def march(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
+          ray_id=None, use="scatter"):
+    """The march on the route ``routes.fog_march`` names: the kernel, or
+    :func:`_march` (the same arguments and results).  On the kernel's
+    route the ``fog.march`` span's ``route`` is ``"kernel"`` and its
+    ``lanes``, ``blocks`` and ``lane_steps`` are counted on the card as
+    :func:`_march` counts them; the march waits for nothing, and t_hit is
+    rebuilt from the scattering step in torch, so a gradient through the
+    rays reaches it as through :func:`_march`'s."""
+    route, _ = routes.fog_march(scene, cfg, ro, rd)
+    if route == "torch":
+        return _march(scene, cfg, ro, rd, tmin, tmax, has, salt,
+                      ray_id=ray_id, use=use)
+    with telemetry.span("fog.march", use=use, route=route) as sp:
+        t0 = tmin + cfg.shadow_bias
+        found, step = cuda_fog.march(
+            scene.fog, ro, rd, t0, tmax, has, ray_id,
+            salt, cfg.raymarch_stepsize, int(cfg.raymarch_max_steps),
+            MARCH_BLOCK,
+            telemetry.counts_ptr(sp, "lanes", "lane_steps", "blocks"))
+        t_hit = torch.where(found, t0 + _step_offsets(cfg, step, ro.dtype),
+                            0.0)
+    return found, t_hit
+
+
 def _march_steps(scene, cfg: RenderConfig, ro, rd, tmin, tmax, has, salt,
                  ray_id=None):
     """The march one step at a time over every lane: the plain version of
@@ -168,8 +197,8 @@ def fog_occludes(scene, cfg: RenderConfig, ro, rd, t_lim, salt,
     tmin, tmax, has = _fog_bounds(scene, ro, rd, t_lim)
     if active is not None:
         has = has & active
-    return _march(scene, cfg, ro, rd, tmin, tmax, has, salt,
-                  ray_id=ray_id, use="shadow")[0]
+    return march(scene, cfg, ro, rd, tmin, tmax, has, salt,
+                 ray_id=ray_id, use="shadow")[0]
 
 
 def fog_override(scene, cfg: RenderConfig, ro, rd, t_hit_surface, sx, sy,
@@ -185,8 +214,8 @@ def fog_override(scene, cfg: RenderConfig, ro, rd, t_hit_surface, sx, sy,
     tmin, tmax, has = _fog_bounds(scene, ro, rd, t_cap)
     if active is not None:
         has = has & active
-    scat, t_s = _march(scene, cfg, ro, rd, tmin, tmax, has, salt,
-                       ray_id=ray_id)
+    scat, t_s = march(scene, cfg, ro, rd, tmin, tmax, has, salt,
+                      ray_id=ray_id)
     fog_col = torch.broadcast_to(scene.fog.color[None, :].to(color.dtype),
                                  color.shape)
     m = scat[:, None]

@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from .ops import cuda_wave_inputs
+from .ops import cuda_fog, cuda_wave_inputs
 from .sampling.halton import HaltonSampler
 from .sampling.rng import ThreefryUniform
 from .scene.types import dataclass_tensors
@@ -126,7 +126,8 @@ def wave_graph(scene, route, photon_map, device, inputs=()) -> tuple:
     why += _on_card(device) + _grad(_wants_grad(*inputs),
                                     "the wave's inputs carry a gradient")
     if scene.has_fog:
-        why.append("fog: the march reads fog.lanes on the host")
+        why.append("fog: a fog wave stays eager until the march's kernel "
+                   "is checked under the graph")
     if photon_map is not None:
         why.append("a photon map: K3's work and totals are counted in "
                    "Python")
@@ -161,3 +162,19 @@ def photon_round(scene, cfg, sampler, uniform, differentiable) -> tuple:
         why.append(f"photon_depth {cfg.photon_depth} > "
                    f"{PHOTON_MAX_DEPTH}")
     return ("staged" if why else "k2"), why
+
+
+def fog_march(scene, cfg, ro, rd) -> tuple:
+    """A march through the scene's fog: ``"kernel"`` (``ops.cuda_fog``, a
+    thread a lane) or ``"torch"`` (``render.atmosphere._march``).  A
+    gradient through the rays is no refusal: the caller rebuilds t from
+    the kernel's step index in torch."""
+    fog = scene.fog
+    why = _on_card(ro.device) + _float32(cfg, ro, rd, fog.grid,
+                                         fog.bbox_min, fog.density)
+    nbytes = 4 * fog.grid.numel()
+    if nbytes > cuda_fog.MAX_GRID_BYTES:
+        why.append(f"a {'x'.join(map(str, fog.grid.shape))} noise grid: "
+                   f"{nbytes} bytes > {cuda_fog.MAX_GRID_BYTES} of shared "
+                   f"memory")
+    return ("torch" if why else "kernel"), why

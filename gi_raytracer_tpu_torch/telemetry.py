@@ -26,21 +26,27 @@ Each record holds its name, start and end in ns, its id, its parent's id
 (None for a root) and its root's id (the frame, the pass, the step: the
 spans of one job share it), and the attributes it was given, host-known
 ints only but the ``route`` of a ``photons.round``, ``wave.trace`` or
-``wave.inputs`` span (the decision of ``routes`` that chose its code:
-``photon_round``, ``wave``, ``wave_inputs``) and the ``graph`` of a
+``wave.inputs`` or ``fog.march`` span (the decision of ``routes`` that
+chose its code: ``photon_round``, ``wave``, ``wave_inputs``,
+``fog_march``) and the ``graph`` of a
 ``wave.trace`` span (``"replay"`` or ``"eager"``, ``routes.wave_graph``:
 whether the wave was one CUDA graph's replay) and the ``use`` of a
 ``fog.march`` span (``"scatter"`` or ``"shadow"``).  A ``wave`` span's
 ``blocks`` and ``lanes`` count the 16x16 blocks and the lanes it traced; a ``trace.analytic`` span's ``lanes`` and
 ``prims`` the rays and the spheres and cones its passes test; a
 ``fog.march`` span's ``lanes``, ``blocks`` and ``lane_steps`` the lanes
-entering the march, its blocks of steps and their lanes times steps.
+entering the march, its blocks of steps and their lanes times steps (on
+the kernel's route counted on the card, :func:`counts_ptr`).
 Records are kept in memory: :func:`records` and :func:`reset`.
 
 K3's tier counts: while recording, the kNN kernel adds each launch's
 queued and taken counts to two 64-bit totals in pinned host memory
 (:func:`k3_totals_ptr`), with no launch and no sync of its own;
-:func:`k3_counts` reads them once the card has synchronised.
+:func:`k3_counts` reads them once the card has synchronised.  A span's
+attributes can come from the card the same way (:func:`counts_ptr`: the
+fog march kernel's ``lanes``, ``lane_steps`` and ``blocks``): a kernel
+adds them to pinned host memory, and :func:`records` reads them into the
+span, so read the records once the card has synchronised.
 """
 
 from __future__ import annotations
@@ -82,6 +88,12 @@ class _Recorder:
         self.next_id = 0
         self.k3 = None
         self.muted = 0
+        # counts_ptr's pinned int64 slabs (the newest last), the slots
+        # taken in the newest, and the spans waiting for their counts:
+        # (span, keys, slab, first slot)
+        self.slabs: list = []
+        self.used = 0
+        self.pending: list = []
 
 
 _rec = _Recorder()
@@ -141,18 +153,49 @@ def sync(site: str):
     return span("sync", site=site)
 
 
+SLAB = 1 << 16      # int64 slots a pinned slab of counts_ptr holds
+
+
+def counts_ptr(sp, *keys):
+    """The address of ``len(keys)`` int64 zeros in pinned host memory that
+    a kernel adds its counts to while recording, for the span ``sp``'s
+    attributes ``keys`` (:func:`records` reads them into it); None where
+    ``sp`` is None (not recording: the kernel counts nothing)."""
+    if sp is None:
+        return None
+    n = len(keys)
+    if not _rec.slabs or _rec.used + n > _rec.slabs[-1].numel():
+        _rec.slabs.append(torch.zeros(SLAB, dtype=torch.int64,
+                                      pin_memory=torch.cuda.is_available()))
+        _rec.used = 0
+    slab, first = _rec.slabs[-1], _rec.used
+    _rec.used += n
+    _rec.pending.append((sp, keys, slab, first))
+    return slab.data_ptr() + 8 * first
+
+
 def records() -> list:
-    """The closed spans, in the order they opened."""
+    """The closed spans, in the order they opened; a span's counts from
+    the card (:func:`counts_ptr`) as they stand in pinned memory."""
+    views = {id(slab): slab.numpy() for slab in _rec.slabs}
+    for sp, keys, slab, first in _rec.pending:
+        sp.attrs.update(zip(keys, views[id(slab)][first:first + len(keys)]
+                            .tolist()))
     return sorted(_rec.closed, key=lambda sp: sp.id)
 
 
 def reset():
-    """Forget every record and zero K3's totals."""
+    """Forget every record and zero K3's totals and the spans' counts."""
     _rec.closed.clear()
     _rec.open.clear()
     _rec.next_id = 0
     if _rec.k3 is not None:
         _rec.k3.zero_()
+    _rec.pending.clear()
+    del _rec.slabs[:-1]
+    if _rec.slabs:
+        _rec.slabs[0].zero_()
+    _rec.used = 0
 
 
 def k3_totals_ptr() -> int:

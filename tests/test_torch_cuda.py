@@ -951,6 +951,171 @@ def test_fog_march_matches_its_step_loop(dev):
     assert torch.equal(got[1], want[1])
 
 
+def _fog_box(dev, density):
+    """The fog cell's Cornell box and fog, at ``density``, on the card."""
+    b = cornell_box(SceneBuilder, meshgen, True)
+    b.add_height_fog((4.0, 3.4, 0.0), (16.0, 8.0, 8.4), (1.0, 1.0, 1.0),
+                     density, 0.5, 2)
+    return b.build(device=dev)
+
+
+@pytest.fixture(scope="module", params=[0.05, 2.0],
+                ids=["cell_density", "dense"])
+def fog_batch(dev, request):
+    """The 512x512 primary batch of ``test_fog_march_matches_its_step_loop``
+    in the fog box at the cell's density (0.05) and at 2.0 (lanes scatter
+    in every block): (scene, config, the march's arguments)."""
+    from gi_raytracer_tpu_torch.render import atmosphere as atm
+
+    fog = _fog_box(dev, request.param)
+    cfg = RenderConfig(max_depth=6)
+    ro, rd, _, _ = Renderer(fog, Camera(pos=CAMERA_POS,
+                                        look_at=CAMERA_LOOK_AT), cfg,
+                            512, 512).wave_inputs(0)
+    hit = trace_closest(fog, ro, rd)
+    t_cap = torch.where(torch.isfinite(hit.t), hit.t, 0.0)
+    tmin, tmax, has = atm._fog_bounds(fog, ro, rd, t_cap)
+    lane = 7 * 262144 + torch.arange(ro.shape[0], device=dev)
+    return fog, cfg, (ro, rd, tmin, tmax, has, 31337), lane
+
+
+def test_fog_march_kernel_matches_the_torch_route(dev, fog_batch):
+    """The march's kernel route, one launch, against the blocked march and
+    the step loop: scatter flags and t_hit bit-equal."""
+    from gi_raytracer_tpu_torch.render import atmosphere as atm
+
+    fog, cfg, args, lane = fog_batch
+    assert routes.fog_march(fog, cfg, args[0], args[1]) == ("kernel", [])
+    n0 = _cuda.launches["fog_march"]
+    got = atm.march(fog, cfg, *args, ray_id=lane)
+    assert _cuda.launches["fog_march"] == n0 + 1
+    assert int(got[0].sum()) > 1000
+    for want in (atm._march(fog, cfg, *args, ray_id=lane),
+                 atm._march_steps(fog, cfg, *args, ray_id=lane)):
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+
+
+def _march_spans(fn):
+    """``fn()`` under a profiler of the device, and its ``fog.march``
+    spans' (use, route, lanes, blocks, lane_steps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gi_raytracer_tpu_torch import telemetry
+    telemetry.reset()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        out = fn()
+        torch.cuda.synchronize()
+    spans = [tuple(sp.attrs[k] for k in ("use", "route", "lanes", "blocks",
+                                         "lane_steps"))
+             for sp in telemetry.records() if sp.name == "fog.march"]
+    telemetry.reset()
+    return out, spans
+
+
+def test_fog_march_kernel_counts_as_the_blocked_march(dev, fog_batch):
+    """On the kernel's route the ``fog.march`` span's ``lanes``, ``blocks``
+    and ``lane_steps``, counted on the card into pinned memory, equal the
+    blocked march's on the same inputs; off the profiler the kernel
+    counts nothing."""
+    from gi_raytracer_tpu_torch.render import atmosphere as atm
+
+    fog, cfg, args, lane = fog_batch
+    _, (got,) = _march_spans(lambda: atm.march(fog, cfg, *args,
+                                               ray_id=lane))
+    _, (want,) = _march_spans(lambda: atm._march(fog, cfg, *args,
+                                                 ray_id=lane))
+    assert got[1:2] == ("kernel",) and want[1:2] == ("torch",)
+    assert got[2:] == want[2:] and want[4] > 0
+    atm.march(fog, cfg, *args, ray_id=lane)
+    _, (again,) = _march_spans(lambda: atm.march(fog, cfg, *args,
+                                                 ray_id=lane))
+    assert again == got
+
+
+@pytest.mark.parametrize("case", ["no_lane", "100_steps", "active",
+                                  "grid_past_1"])
+def test_fog_march_kernel_edge_cases(dev, case):
+    """The kernel's route against the blocked march on rays through the
+    dense fog, found, t_hit and the span's counts: a march no lane
+    enters, ``raymarch_max_steps`` not a multiple of 32,
+    ``fog_occludes``/``fog_override`` with an ``active`` mask, and the
+    cell's density over a grid of values in [-0.2, 1.2) (the density's
+    clamps and pow on values past the noise's [0, 1))."""
+    from gi_raytracer_tpu_torch.render import atmosphere as atm
+
+    fog = _fog_box(dev, 0.05 if case == "grid_past_1" else 2.0)
+    if case == "grid_past_1":
+        fog = dataclasses.replace(fog, fog=dataclasses.replace(
+            fog.fog, grid=fog.fog.grid * 1.4 - 0.2))
+    cfg = RenderConfig(max_depth=6)
+    ro, rd = _random_rays(dev, 65536, 3)
+    ro = ro * 0.9
+    tmin, tmax, has = atm._fog_bounds(fog, ro, rd,
+                                      torch.full((65536,), 12.0, device=dev))
+    lane = torch.arange(65536, device=dev) * 3
+    if case == "no_lane":
+        has = torch.zeros_like(has)
+    if case == "100_steps":
+        cfg = cfg.replace(raymarch_max_steps=100)
+    if case != "active":
+        args = (ro, rd, tmin, tmax, has, 99)
+        got, g_spans = _march_spans(lambda: atm.march(fog, cfg, *args,
+                                                      ray_id=lane))
+        want, w_spans = _march_spans(lambda: atm._march(fog, cfg, *args,
+                                                        ray_id=lane))
+        assert [s[2:] for s in g_spans] == [s[2:] for s in w_spans]
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+        assert (int(got[0].sum()) == 0) == (case == "no_lane")
+        return
+    active = torch.rand(65536, generator=torch.Generator(device=dev)
+                        .manual_seed(4), device=dev) < 0.5
+    t_hit = torch.where(torch.rand(65536, device=dev) < 0.2, torch.inf,
+                        torch.full((65536,), 9.0, device=dev))
+    z = torch.zeros((65536, 3), device=dev)
+    zs = torch.zeros(65536, device=dev)
+    calls = (lambda: atm.fog_occludes(fog, cfg, ro, rd, tmax, 77,
+                                      ray_id=lane, active=active),
+             lambda: atm.fog_override(fog, cfg, ro, rd, t_hit, zs + 0.3,
+                                      zs + 0.6, 78, z, z, z, z, z, z, zs,
+                                      zs, ray_id=lane, active=active))
+    for k, call in enumerate(calls):
+        got = call()
+        orig = routes.fog_march
+        routes.fog_march = lambda *a: ("torch", ["forced"])
+        try:
+            want = call()
+        finally:
+            routes.fog_march = orig
+        if not k:   # some shadow rays of the active lanes occluded
+            assert bool(got.any()) and not bool((got & ~active).any())
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_fog_march_kernel_once_a_march(dev):
+    """A fog frame on the card marches every bounce and shadow ray by one
+    launch of the kernel: as many launches as ``fog.march`` spans, each
+    on the kernel's route, and no call of the blocked march."""
+    fog = _fog_box(dev, 0.05)
+    r = Renderer(fog, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
+                 RenderConfig(adaptive=False, min_samples=2, max_samples=2,
+                              max_depth=3, ambient=(0.35, 0.35, 0.35)),
+                 64, 64)
+    r.render()
+    torch.cuda.synchronize(dev)
+    _cuda.reset_launches()
+    _, spans = _march_spans(r.render)
+    assert len(spans) == _cuda.launches["fog_march"] > 0
+    assert {s[1] for s in spans} == {"kernel"}
+    assert _cuda.plain_calls["fog_march"] == 0
+
+
 # ---- the program's spans and counters on the card (telemetry) -----------
 
 def _device_events(prof):
@@ -1069,9 +1234,14 @@ def test_telemetry_marks_every_sync(dev, scene, chunk_map):
             torch.cuda.synchronize(dev)
         unmarked = sorted({w for w, top in caught if top != "sync"})
         assert not unmarked, (name, unmarked)
-        spans = collections.Counter(sp.attrs["site"]
-                                    for sp in telemetry.records()
+        recs = telemetry.records()
+        spans = collections.Counter(sp.attrs["site"] for sp in recs
                                     if sp.name == "sync")
+        if name == "fog":
+            # the march's kernel waits for nothing
+            assert not {"fog.block", "fog.lanes"} & set(spans), spans
+            assert {sp.attrs["route"] for sp in recs
+                    if sp.name == "fog.march"} == {"kernel"}
         assert len(caught) == sum(spans.values()) > 0, (
             name, sorted(collections.Counter(w for w, _ in caught).items()),
             sorted(spans.items()))

@@ -232,7 +232,8 @@ MAP = types.SimpleNamespace(pos=F32, dir=F32, col=F32)
      "the wave's inputs carry a gradient: autograd must see the "
      "operations"),
     ({"scene": _scene(has_fog=True)},
-     "fog: the march reads fog.lanes on the host")],
+     "fog: a fog wave stays eager until the march's kernel is checked "
+     "under the graph")],
     ids=["full_band", "with_a_map", "k1", "cpu", "grad", "fog"])
 def test_wave_graph_route_names_each_reason(kw, why):
     """A frame of staged waves on the card replays the graph; each
@@ -354,6 +355,68 @@ def test_renderer_keeps_its_ambient_tensor(built):
     assert "wave.ambient" not in sites and r.ambient() is amb
     r.cfg = cfg.replace(ambient=(0.5, 0.5, 0.5))
     assert r.ambient().tolist() == [0.5, 0.5, 0.5]
+
+
+# ---- the fog march ---------------------------------------------------------
+
+def _rays(device=CARD, dtype=torch.float32):
+    """A stand-in for a march's rays: what ``routes.fog_march`` reads."""
+    return types.SimpleNamespace(device=device, dtype=dtype)
+
+
+def _fog(shape=(33, 17, 17), dtype=torch.float32):
+    """A stand-in for the fog cell's fog, its noise grid of ``shape``."""
+    return types.SimpleNamespace(grid=torch.zeros(shape, dtype=dtype),
+                                 bbox_min=torch.zeros(3, dtype=dtype),
+                                 density=torch.zeros((), dtype=dtype))
+
+
+@pytest.mark.parametrize("kw, why", [
+    ({}, None),
+    ({"fog": _fog((38, 38, 40))}, None),
+    ({"rays": _rays(torch.device("cpu"))}, "tensors on cpu, not the card"),
+    ({"cfg": RenderConfig(dtype="float64"), "rays": _rays(dtype=F64.dtype),
+      "fog": _fog(dtype=torch.float64)},
+     "dtype float64 (['torch.float64'])"),
+    ({"rays": _rays(dtype=F64.dtype)}, "dtype float32 (['torch.float64'])"),
+    ({"fog": _fog((38, 38, 41))}, "a 38x38x41 noise grid: 236816 bytes > "
+                                  "232448 of shared memory")],
+    ids=["fog_cell", "at_the_cap", "cpu", "float64", "float64_rays",
+         "past_shared_memory"])
+def test_fog_march_route_names_each_reason(kw, why):
+    """The fog cell's march on the card takes the kernel; each condition
+    alone refuses it, and the reason names it."""
+    rays = kw.get("rays", _rays())
+    scene = _scene(has_fog=True, fog=kw.get("fog", _fog()))
+    got = routes.fog_march(scene, kw.get("cfg", RenderConfig()), rays, rays)
+    assert got == (("kernel", []) if why is None else ("torch", [why]))
+
+
+def test_cpu_fog_render_marches_on_the_torch_route():
+    """A CPU render of a fog box marches on ``_march``: every ``fog.march``
+    span carries ``route="torch"`` and the plain version's calls count
+    each march."""
+    from gi_raytracer_tpu_torch.ops import _cuda
+    b = cornell_box(SceneBuilder, meshgen, False)
+    b.add_height_fog((4.0, 3.4, 0.0), (16.0, 8.0, 8.4), (1.0, 1.0, 1.0),
+                     2.0, 0.5, 2)
+    box = b.build(device="cpu")
+    r = Renderer(box, Camera(pos=CAMERA_POS, look_at=CAMERA_LOOK_AT),
+                 RenderConfig(adaptive=False, min_samples=1, max_samples=1,
+                              max_depth=2), 8, 8)
+    assert routes.fog_march(box, r.cfg, box.tris.v0, box.tris.v0) == (
+        "torch", ["tensors on cpu, not the card"])
+    _cuda.reset_launches()
+    telemetry.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            r.render()
+        spans = [sp for sp in telemetry.records() if sp.name == "fog.march"]
+    finally:
+        telemetry.reset()
+    assert [sp.attrs["route"] for sp in spans] == ["torch"] * 4
+    assert _cuda.plain_calls["fog_march"] == 4
+    assert _cuda.launches["fog_march"] == 0
 
 
 # ---- the photon round -----------------------------------------------------

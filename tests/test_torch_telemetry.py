@@ -5,6 +5,8 @@ against a hand count, and the exact ray counter.  The card's tests of the
 shared clock, the marked syncs and K3's totals are in
 ``tests/test_torch_cuda.py``."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -213,6 +215,126 @@ def test_fog_march_spans_count_the_steps_marched(monkeypatch):
               and sp.attrs["site"] == "fog.block"]
     assert len(blocks) == 5 * sum(sp.attrs["blocks"] for sp in marches)
     assert {sp.parent for sp in blocks} <= {sp.id for sp in marches}
+
+
+def _write(ptr, values):
+    """Add ``values`` to the int64 at ``ptr``, as a kernel adds its
+    counts to pinned memory."""
+    cells = (ctypes.c_int64 * len(values)).from_address(ptr)
+    for k, v in enumerate(values):
+        cells[k] += v
+
+
+@pytest.mark.parametrize("slab", [telemetry.SLAB, 4],
+                         ids=["one_slab", "past_a_slab"])
+def test_counts_ptr_fills_the_spans_attributes(monkeypatch, slab):
+    """While recording, ``counts_ptr`` gives each span zeros of its own
+    that ``records`` reads into its attributes (also where the counts
+    take more than one slab); off the profiler it gives None, and
+    ``reset`` zeros the counts it hands out again."""
+    monkeypatch.setattr(telemetry, "SLAB", slab)
+    telemetry.reset()
+    with telemetry.span("off") as sp:
+        assert telemetry.counts_ptr(sp, "lanes") is None
+
+    def job():
+        for n in range(3):
+            with telemetry.span("fog.march", use="shadow") as sp:
+                _write(telemetry.counts_ptr(sp, "lanes", "lane_steps",
+                                            "blocks"), (n, 32 * n, 1))
+    _profiled(job)
+    assert [sp.attrs for sp in telemetry.records()] == [
+        {"use": "shadow", "lanes": n, "lane_steps": 32 * n, "blocks": 1}
+        for n in range(3)]
+    # counts added after the span closed (a kernel still running) show
+    # in the next read
+    _write(telemetry._rec.pending[0][2].data_ptr()
+           + 8 * telemetry._rec.pending[0][3], (5,))
+    assert telemetry.records()[0].attrs["lanes"] == 5
+    telemetry.reset()
+    _profiled(job)
+    assert [sp.attrs["lanes"] for sp in telemetry.records()] == [0, 1, 2]
+
+
+def _stand_in_kernel(fog, ro, rd, t0, tmax, has, ray_id, salt, step,
+                     max_steps, block_steps, counts=None):
+    """``cuda_fog.march``'s contract on the CPU, step by step over every
+    lane: each lane's first scattering step, and the counts the kernel
+    adds (the lanes entering, each lane's blocks of ``block_steps`` steps
+    entered and their steps, the most blocks a lane entered)."""
+    import types
+
+    from gi_raytracer_tpu_torch.render import atmosphere
+    from gi_raytracer_tpu_torch.sampling.rng import hash_u01
+    scene = types.SimpleNamespace(fog=fog)
+    cfg = RenderConfig(raymarch_stepsize=step)
+    rid = (torch.arange(ro.shape[0]) if ray_id is None
+           else ray_id & 0xFFFFFFFF)
+    live = has & (t0 < tmax)
+    found = torch.zeros_like(live)
+    idx = torch.zeros(ro.shape[0], dtype=torch.int64)
+    reach = torch.zeros(ro.shape[0], dtype=torch.int64)
+    for i in range(max_steps):
+        t = t0 + atmosphere._step_offsets(cfg, torch.tensor(i), t0.dtype)
+        going = live & ~found & (t < tmax)
+        if not going.any():
+            break
+        reach += going
+        p = ro + t[:, None] * rd
+        scat = going & (hash_u01(rid, i, salt)
+                        < atmosphere.fog_density(scene, p))
+        found |= scat
+        idx = torch.where(scat, i, idx)
+    blocks = torch.where(found, idx // block_steps + 1,
+                         (reach + block_steps - 1) // block_steps) * live
+    if counts is not None:
+        _write(counts, (int(live.sum()),
+                        int(torch.clamp(blocks * block_steps,
+                                        max=max_steps).sum()),
+                        int(blocks.max()) if blocks.numel() else 0))
+    return found, idx.to(torch.int32)
+
+
+@pytest.mark.parametrize("max_steps", [512, 100], ids=["512", "100"])
+def test_fog_kernel_route_counts_as_the_blocked_march(monkeypatch,
+                                                      max_steps):
+    """``atmosphere.march`` on the kernel's route (here forced, the kernel
+    stood in for by its contract on the CPU): the image is the torch
+    route's bit for bit (t_hit rebuilt from the step index), and each
+    ``fog.march`` span, its counts read from memory the kernel writes,
+    carries the torch route's ``lanes``, ``blocks`` and ``lane_steps``."""
+    from gi_raytracer_tpu_torch import routes
+    from gi_raytracer_tpu_torch.ops import _cuda, cuda_fog
+
+    b = cornell_box(SceneBuilder, meshgen, False)
+    b.add_height_fog((4.0, 3.4, 0.0), (16.0, 8.0, 8.4), (1.0, 1.0, 1.0),
+                     2.0, 0.5, 2)
+    r = _renderer(b.build(device="cpu"), ambient=(0.35, 0.35, 0.35),
+                  raymarch_max_steps=max_steps)
+    keys = ("use", "lanes", "blocks", "lane_steps")
+
+    def marches():
+        spans = [sp for sp in telemetry.records() if sp.name == "fog.march"]
+        telemetry.reset()
+        return spans
+
+    want = _profiled(r.render)
+    torch_spans = marches()
+    monkeypatch.setattr(routes, "fog_march", lambda *a: ("kernel", []))
+    monkeypatch.setattr(cuda_fog, "march", _stand_in_kernel)
+    _cuda.reset_launches()
+    got = _profiled(r.render)
+    kernel_spans = marches()
+    assert torch.equal(got, want)
+    assert _cuda.plain_calls["fog_march"] == 0
+    assert [sp.attrs["route"] for sp in torch_spans] == ["torch"] * 8
+    assert [sp.attrs["route"] for sp in kernel_spans] == ["kernel"] * 8
+    assert ([[sp.attrs[k] for k in keys] for sp in kernel_spans]
+            == [[sp.attrs[k] for k in keys] for sp in torch_spans])
+    assert sum(sp.attrs["lane_steps"] for sp in kernel_spans) > 0
+    sites = {sp.attrs["site"] for sp in telemetry.records()
+             if sp.name == "sync"}
+    assert not sites & {"fog.block", "fog.lanes"}
 
 
 def test_ray_counter_is_exact_past_2_24(small_box):
